@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """ChEES trajectory-length adaptation walkthrough.
 
-Demonstrates the TPU-native alternative to the reference's 7-run L grid
+Demonstrates the batched alternative to the reference's 7-run L grid
 search (reference run_benchmarks.py:1055-1056): ONE warmup jointly adapts
 step size (dual averaging), diagonal mass matrix (Welford windows) and
 trajectory length (the ChEES criterion of Hoffman, Radul & Sountsov 2021,
@@ -36,7 +36,7 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
 
-    if jax.default_backend() != "tpu":
+    if jax.default_backend() == "cpu":
         jax.config.update("jax_enable_x64", True)
     os.makedirs(args.out, exist_ok=True)
 

@@ -10,7 +10,7 @@ synthetic data end to end:
      no analytic derivation needed, though `value_and_grad_fn` accepts one),
   2. `run_adaptive_warmup` (Stan-style windowed adaptation: dual-averaged
      step size + Welford diagonal metric),
-  3. `nuts_run_persistent` (the TPU-native asynchronous NUTS),
+  3. `nuts_run_persistent` (the asynchronous batched NUTS),
   4. diagnostics, credible intervals, truth recovery and held-out accuracy.
 
 The same log_prob_fn composes unchanged with every other surface: wrap it
@@ -47,7 +47,7 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
 
-    if jax.default_backend() != "tpu":
+    if jax.default_backend() == "cpu":
         jax.config.update("jax_enable_x64", True)
 
     from mcmc_tpu.samplers import nuts_run_persistent

@@ -38,7 +38,7 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
 
-    if jax.default_backend() != "tpu":
+    if jax.default_backend() == "cpu":
         jax.config.update("jax_enable_x64", True)
     os.makedirs(args.out, exist_ok=True)
 

@@ -14,7 +14,7 @@ tuned (eps, T, gamma), and min-bulk-ESS per leapfrog gradient. The VERDICT
 acceptance bar: joint ESS/grad >= grid ESS/grad on the funnel and
 Rosenbrock configs, at lower warmup cost.
 
-Run on TPU:  python experiments/joint_gamma_eval.py
+Run on the GPU:  python experiments/joint_gamma_eval.py
 CPU (small): python experiments/joint_gamma_eval.py --cpu --chains 256
 """
 

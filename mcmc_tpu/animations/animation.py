@@ -5,7 +5,7 @@ chain's proposal trajectory at substep resolution — position q, momentum p,
 potential U, kinetic K, Hamiltonian H per leapfrog substep — and render a
 side-by-side HMC vs GRAHMC animation on a 2D bimodal target.
 
-TPU-native difference: the tracer is the same conformal-leapfrog integrator as
+Difference: the tracer is the same conformal-leapfrog integrator as
 the samplers, run with a scan that COLLECTS the per-substep state (a
 trajectory dump), instead of a separate Python reimplementation. Animations
 are saved as GIF via the Pillow writer (no ffmpeg dependency).

@@ -8,7 +8,7 @@ energy added) and attract phase (gamma > 0, second half, energy removed) are
 drawn as two differently-colored growing segments, with the phase named in the
 animated title and a start-position marker.
 
-TPU-native difference: trajectories come from the production conformal
+Difference: trajectories come from the production conformal
 leapfrog tracers (`hmc_proposal_trace` / `rahmc_proposal_trace`) — the same
 integrator the samplers use — not a separate reimplementation. Saved via the
 Pillow GIF writer by default (no ffmpeg dependency); pass an .mp4 filename to

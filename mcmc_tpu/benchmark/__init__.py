@@ -2,7 +2,7 @@
 
 Drives the reference's exact CLI contract (flags, result-JSON/CSV schema,
 incremental save/resume, trajectory-length grid search, convergence tracking —
-reference run_benchmarks.py) on the TPU-native sampler stack.
+reference run_benchmarks.py) on the batched JAX sampler stack.
 """
 
 from mcmc_tpu.benchmark.runner import (

@@ -1,4 +1,4 @@
-"""Benchmark runner: the reference CLI contract on the TPU-native stack.
+"""Benchmark runner: the reference CLI contract on the batched JAX stack.
 
 Schema and behavior parity with reference run_benchmarks.py (result field list
 :831-888, grid-search selection :400-413, failure records :267-398, resume
@@ -11,6 +11,7 @@ Schema and behavior parity with reference run_benchmarks.py (result field list
 """
 
 import copy
+import csv
 import json
 import time
 from pathlib import Path
@@ -177,34 +178,27 @@ def _warmup(sampler, target, target_name, key, init_pos, num_warmup,
     return step_size, inv_mass, pos, info
 
 
-def _resolve_backend(sampler, target) -> str:
-    """'pallas' for RWMH/HMC/GRAHMC on TPU when the target has a fused kernel
-    specialization, else 'xla'."""
-    from mcmc_tpu.ops.padded_targets import auto_pallas_backend
-    if (sampler in ("rwmh", "hmc", "grahmc", "rahmc")
-            and auto_pallas_backend(target.value_and_grad_fn)):
-        return "pallas"
+def _resolve_backend(sampler, target, backend: str = "auto") -> str:
+    """The trajectory backend for HMC/GRAHMC (ops/padded_targets.
+    resolve_backend: the fused kernel on a GPU for targets with kernel
+    math); every other sampler runs XLA."""
+    from mcmc_tpu.ops.padded_targets import resolve_backend
+    if sampler in ("hmc", "grahmc", "rahmc"):
+        return resolve_backend(backend, target.value_and_grad_fn)
     return "xla"
 
 
 def _resolve_nuts_backend(nuts_backend: str, target) -> str:
-    """Resolve the 'auto' NUTS backend (the CLI default, VERDICT r2 #1).
+    """Resolve the 'auto' NUTS backend (the CLI default).
 
-    'auto' -> 'persistent' (the asynchronous flat state machine +
-    fused VMEM windows, samplers/nuts_persistent.py) on TPU when the target
-    carries a fused-kernel specialization: the classic vmapped tree doubling
-    pays a measured 8.7-32x lockstep stall there (BASELINE.md "classic vs
-    persistent"). Everywhere else 'auto' -> 'classic' (reference semantics,
-    reference samplers/NUTS.py:380-442). Explicit values pass through, so
-    `--nuts-backend classic` remains the opt-out.
+    'auto' -> 'classic' (reference semantics, reference samplers/
+    NUTS.py:380-442) until a bench cell compares it with the persistent
+    machine on the GPU (ROADMAP). Explicit values pass through, so
+    `--nuts-backend persistent` selects the asynchronous machine
+    (samplers/nuts_persistent.py).
     """
     if nuts_backend != "auto":
         return nuts_backend
-    import jax
-    vag = target.value_and_grad_fn
-    if (jax.default_backend() == "tpu"
-            and getattr(vag, "pallas_info", None)):
-        return "persistent"
     return "classic"
 
 
@@ -252,8 +246,7 @@ def _sample(sampler, target, key, position, step_size, num_steps, num_samples,
     emitted. replica_position threads the full (K*C, D) ladder state across
     convergence-checkpoint batches.
     """
-    if backend == "auto":
-        backend = _resolve_backend(sampler, target)
+    backend = _resolve_backend(sampler, target, backend)
     if nuts_backend == "auto":
         nuts_backend = _resolve_nuts_backend(nuts_backend, target)
     if tempering and tempering > 1 and sampler in ("hmc", "grahmc", "rahmc"):
@@ -288,17 +281,11 @@ def _sample(sampler, target, key, position, step_size, num_steps, num_samples,
             friction_schedule=(None if is_hmc
                                else get_friction_schedule(schedule_type)),
             value_and_grad_fn=target.value_and_grad_fn,
-            backend=backend if backend == "pallas" else "xla",
+            backend=backend,
             init_replica_position=replica_position)
-    # dense (D, D) metrics run in-kernel on every fused shard_map path —
-    # the trajectory kernels AND the persistent-NUTS window kernel carry
-    # M^{-1} plus its unwhitening factor in VMEM
-    if (mesh is not None and sampler == "nuts"
-            and nuts_backend == "persistent"
-            and getattr(target.value_and_grad_fn, "pallas_info", None)):
-        # fused persistent-NUTS windows shard_mapped per device (GSPMD over
-        # the XLA machine works too, but compiles ~150x slower); both
-        # proposal schemes run in-kernel (ops/fused_nuts.py)
+    if mesh is not None and sampler == "nuts" and nuts_backend == "persistent":
+        # the XLA machine shard_mapped per device: chains never talk, so
+        # each device runs its own machine on its shard
         from mcmc_tpu.parallel.fused_sharded import nuts_persistent_run_sharded
         n_local = position.shape[0] // mesh.devices.size
         return nuts_persistent_run_sharded(
@@ -308,8 +295,10 @@ def _sample(sampler, target, key, position, step_size, num_steps, num_samples,
             inv_mass_matrix=inv_mass, max_tree_depth=10,
             collect_chains_per_device=n_local,
             proposal_scheme=nuts_proposal)
-    if (mesh is not None and backend == "pallas"
+    if (mesh is not None and backend != "xla"
             and sampler in ("hmc", "grahmc", "rahmc")):
+        # pallas_call is opaque to the GSPMD partitioner: the kernel path
+        # is shard_mapped explicitly
         from mcmc_tpu.parallel.fused_sharded import grahmc_run_sharded
         is_hmc = sampler == "hmc"
         n_local = position.shape[0] // mesh.devices.size
@@ -321,12 +310,11 @@ def _sample(sampler, target, key, position, step_size, num_steps, num_samples,
             num_samples=num_samples, burn_in=0, inv_mass_matrix=inv_mass,
             friction_schedule=(None if is_hmc
                                else get_friction_schedule(schedule_type)),
-            collect_chains_per_device=n_local)
+            collect_chains_per_device=n_local,
+            backend=backend)
     if sampler == "rwmh":
         return rwmh_run(key, target.log_prob_fn, position,
-                        num_samples=num_samples, scale=step_size, burn_in=0,
-                        value_and_grad_fn=target.value_and_grad_fn,
-                        backend=backend)
+                        num_samples=num_samples, scale=step_size, burn_in=0)
     if sampler == "hmc":
         return hmc_run(key, target.log_prob_fn, position, step_size=step_size,
                        num_steps=num_steps, num_samples=num_samples, burn_in=0,
@@ -335,7 +323,7 @@ def _sample(sampler, target, key, position, step_size, num_steps, num_samples,
                        backend=backend)
     if sampler == "nuts":
         if nuts_backend == "persistent":
-            # TPU fast path: asynchronous NUTS, fixed-interval snapshots
+            # asynchronous NUTS, fixed-interval snapshots
             # (samplers/nuts_persistent.py). Exact gradient accounting via
             # info["n_leapfrogs"].
             return nuts_run_persistent(
@@ -838,7 +826,8 @@ def run_single_benchmark_with_L(
         if sampler == "rwmh":
             sampler_metadata = {"scale": step_size}
         elif sampler == "hmc":
-            sampler_metadata = {"step_size": step_size, "num_steps": num_steps}
+            sampler_metadata = {"step_size": step_size, "num_steps": num_steps,
+                                "backend": _resolve_backend(sampler, target)}
         elif sampler == "nuts":
             sampler_metadata = {"step_size": step_size, "max_tree_depth": 10,
                                 "avg_tree_depth": avg_tree_depth,
@@ -850,7 +839,8 @@ def run_single_benchmark_with_L(
             sampler_metadata = {"step_size": step_size, "num_steps": num_steps,
                                 "gamma": warmup_info.get("gamma", 1.0),
                                 "steepness": warmup_info.get("steepness", 5.0),
-                                "schedule": schedule_type}
+                                "schedule": schedule_type,
+                                "backend": _resolve_backend(sampler, target)}
             if "gamma_tuner" in warmup_info:
                 # which friction tuner actually produced gamma: 'joint'
                 # (SPSA inside the ChEES warmup) or 'grid' (sequential
@@ -1451,6 +1441,24 @@ def _config_key(row: Dict):
             row.get("mass_matrix_learned"))
 
 
+def _csv_cell(value):
+    """One CSV cell: None and NaN are empty, everything else its str()."""
+    if value is None or (isinstance(value, float) and value != value):
+        return ""
+    return value
+
+
+def _write_csv_row(path, columns, row, header: bool):
+    """Write (header=True: create with a header) or append one row in the
+    pinned column order; columns the row lacks stay empty and keys outside
+    the pinned order are dropped, so appends stay aligned across resumes."""
+    with open(path, "w" if header else "a", newline="") as f:
+        writer = csv.writer(f)
+        if header:
+            writer.writerow(columns)
+        writer.writerow([_csv_cell(row.get(c)) for c in columns])
+
+
 def save_result_incremental(result: Dict, output_dir: str, is_first: bool = False):
     """Append one result to benchmark_results.{csv,json}; the CSV column order
     is pinned in .csv_columns.json so appends stay aligned across resumes.
@@ -1461,8 +1469,6 @@ def save_result_incremental(result: Dict, output_dir: str, is_first: bool = Fals
     to the persistent backend) replaces its stale row instead of
     double-counting in downstream summaries. The CSV is an append-only
     mirror and may retain superseded rows mid-run."""
-    import pandas as pd
-
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     csv_path = out / "benchmark_results.csv"
@@ -1475,21 +1481,21 @@ def save_result_incremental(result: Dict, output_dir: str, is_first: bool = Fals
     for k in ("grid_search_info", "convergence_trace"):
         if csv_row.get(k) is not None:
             csv_row[k] = json.dumps(csv_row[k])
-    df_row = pd.DataFrame([csv_row])
 
     if is_first or not csv_path.exists():
-        df_row.to_csv(csv_path, index=False, mode="w")
+        columns = list(csv_row)
         with open(col_order_path, "w") as f:
-            json.dump(df_row.columns.tolist(), f)
+            json.dump(columns, f)
+        _write_csv_row(csv_path, columns, csv_row, header=True)
     else:
         if col_order_path.exists():
             with open(col_order_path) as f:
-                expected = json.load(f)
-            df_row = df_row.reindex(columns=expected)
+                columns = json.load(f)
         else:
+            columns = list(csv_row)
             with open(col_order_path, "w") as f:
-                json.dump(df_row.columns.tolist(), f)
-        df_row.to_csv(csv_path, index=False, mode="a", header=False)
+                json.dump(columns, f)
+        _write_csv_row(csv_path, columns, csv_row, header=False)
 
     if is_first or not json_path.exists():
         all_results = [rounded]
@@ -1585,7 +1591,8 @@ def run_all_benchmarks(
     reparam: str = "off",
 ):
     """Iterate target x sampler x mass-mode (x schedule for GRAHMC) with
-    resume-by-signature and incremental saving. Returns a DataFrame.
+    resume-by-signature and incremental saving. Returns the result rows
+    (a list of dicts, the contents of benchmark_results.json).
 
     warmup_cache: checkpoint Phase-1 warmup products per configuration
     under `<output_dir>/.warmup_cache_seed<seed>/` so an interrupted grid
@@ -1602,7 +1609,6 @@ def run_all_benchmarks(
     are saved under the transformed target name with reparam='log' and
     additionally gate on the constrained-coordinate z-test)."""
     import jax
-    import pandas as pd
 
     if reparam not in ("off", "auto"):
         raise ValueError(f"reparam must be 'off' or 'auto', got {reparam!r}")
@@ -1613,10 +1619,10 @@ def run_all_benchmarks(
             "tuner (the criterion would adapt to the cold replica only); "
             "drop one of the two flags")
 
-    # Reference parity: CLIs enable x64 — but only off-TPU. float64 is
-    # software-emulated on TPU; the f32 fast path is validated by the
-    # statistical gates instead (mcmc_tpu.precision policy).
-    if jax.default_backend() != "tpu":
+    # Reference parity: the CLI enables x64 on the CPU only. On an
+    # accelerator float32 stays the policy (mcmc_tpu.precision), validated
+    # by the statistical gates.
+    if jax.default_backend() == "cpu":
         jax.config.update("jax_enable_x64", True)
     key = random.PRNGKey(seed)
     Path(output_dir).mkdir(parents=True, exist_ok=True)
@@ -1773,60 +1779,60 @@ def run_all_benchmarks(
                     save_result_incremental(result, output_dir, is_first=is_first)
                     is_first = False
 
-    df = pd.DataFrame(all_results)
     print(f"\n[OK] results saved incrementally to {output_dir}/"
           f"benchmark_results.{{csv,json}} ({len(all_results)} experiments)")
-    return df
+    return all_results
 
 
-def print_summary(df):
-    """Print pass/usable counts, failure analysis, and efficiency rankings."""
-    n = len(df)
+def _row_name(row):
+    sched = row.get("schedule")
+    return row["sampler"] + (f"-{sched}" if isinstance(sched, str) else "")
+
+
+def print_summary(rows):
+    """Print pass/usable counts, failure analysis, and efficiency rankings
+    for the result rows run_all_benchmarks returns."""
+    n = len(rows)
     if n == 0:
         print("No results.")
         return
+
+    def counts(sub):
+        return (sum(bool(r.get("quality_pass")) for r in sub),
+                sum(bool(r.get("usable")) for r in sub))
+
     print(f"\n{'=' * 80}\nBENCHMARK SUMMARY\n{'=' * 80}")
-    passed = int(df.get("quality_pass", False).sum()) if "quality_pass" in df else 0
-    usable = int(df.get("usable", False).sum()) if "usable" in df else 0
+    passed, usable = counts(rows)
     print(f"Total experiments: {n}")
     print(f"High quality: {passed}/{n} ({100 * passed / n:.1f}%)")
     print(f"Usable: {usable}/{n} ({100 * usable / n:.1f}%)")
     print(f"Failed: {n - usable}/{n}")
 
-    if "sampler" in df:
-        print("\nBy sampler:")
-        for s in df["sampler"].unique():
-            sub = df[df["sampler"] == s]
-            print(f"  {s:10s}: pass={int(sub['quality_pass'].sum())}/{len(sub)}, "
-                  f"usable={int(sub['usable'].sum())}/{len(sub)}")
-    if "target" in df:
-        print("\nBy target:")
-        for t in df["target"].unique():
-            sub = df[df["target"] == t]
-            print(f"  {t:30s}: pass={int(sub['quality_pass'].sum())}/{len(sub)}, "
-                  f"usable={int(sub['usable'].sum())}/{len(sub)}")
+    for field, label, width in (("sampler", "By sampler", 10),
+                                ("target", "By target", 30)):
+        print(f"\n{label}:")
+        for value in dict.fromkeys(r.get(field) for r in rows):
+            sub = [r for r in rows if r.get(field) == value]
+            p, u = counts(sub)
+            print(f"  {str(value):{width}s}: pass={p}/{len(sub)}, "
+                  f"usable={u}/{len(sub)}")
 
-    if "grid_search_failed" in df:
-        failed = df[df["grid_search_failed"] == True]  # noqa: E712
-        for _, row in failed.iterrows():
-            sched = row.get("schedule")
-            name = row["sampler"] + (f"-{sched}" if isinstance(sched, str) else "")
-            print(f"  GRID FAILURE: {name} on {row['target']} "
+    for row in rows:
+        if row.get("grid_search_failed") is True:
+            print(f"  GRID FAILURE: {_row_name(row)} on {row['target']} "
                   f"(best L tried: {row.get('num_steps')})")
 
-    if "usable" in df and "ess_per_gradient" in df:
-        top = df[df["usable"] == True].sort_values(  # noqa: E712
-            "ess_per_gradient", ascending=False).head(10)
-        if len(top):
-            print("\nTop 10 by ESS/gradient (usable only):")
-            for _, row in top.iterrows():
-                sched = row.get("schedule")
-                name = row["sampler"] + (f"-{sched}" if isinstance(sched, str) else "")
-                rhat = row.get("rhat_max")
-                # SMC rows carry rhat_max=None (no analogue)
-                rhat_s = f"{rhat:.4f}" if rhat is not None and np.isfinite(
-                    np.float64(rhat)) else "n/a"
-                print(f"  {name:<25s} {row['target']:<25s} "
-                      f"{row['ess_per_gradient']:.6f} "
-                      f"(ESS={row.get('ess_bulk_min', 0):.0f}, "
-                      f"R-hat={rhat_s})")
+    top = sorted((r for r in rows if r.get("usable") is True
+                  and r.get("ess_per_gradient") is not None),
+                 key=lambda r: r["ess_per_gradient"], reverse=True)[:10]
+    if top:
+        print("\nTop 10 by ESS/gradient (usable only):")
+        for row in top:
+            rhat = row.get("rhat_max")
+            # SMC rows carry rhat_max=None (no analogue)
+            rhat_s = f"{rhat:.4f}" if rhat is not None and np.isfinite(
+                np.float64(rhat)) else "n/a"
+            print(f"  {_row_name(row):<25s} {row['target']:<25s} "
+                  f"{row['ess_per_gradient']:.6f} "
+                  f"(ESS={row.get('ess_bulk_min') or 0:.0f}, "
+                  f"R-hat={rhat_s})")

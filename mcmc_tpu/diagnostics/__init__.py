@@ -39,10 +39,8 @@ def _moments_device(samples):
 
 
 # Dims processed per dispatch for large histories. Keeping each diagnostics
-# program modest avoids a remote-TPU runtime fault observed when the fully
-# fused (R-hat + bulk/tail ESS + MCSE) program ran on multi-hundred-MB
-# histories ("TPU worker process crashed"), and caps peak memory for the FFT
-# buffers (which are complex64 at 2x the padded history size per dim).
+# program modest caps peak memory for the FFT buffers (complex64 at 2x the
+# padded history size per dim) on multi-hundred-MB histories.
 _DIM_CHUNK = 8
 
 
@@ -134,19 +132,17 @@ def hdi(samples, hdi_prob: float = 0.94):
 
 
 def summary(samples, hdi_prob: float = 0.94, var_names=None):
-    """arviz `az.summary`-style per-dimension table as a pandas DataFrame.
+    """arviz `az.summary`-style per-dimension table as a dict of columns.
 
-    Columns: mean, sd, hdi_lo, hdi_hi, mcse_mean, ess_bulk, ess_tail,
-    r_hat — built from the same on-device estimators the gates use
-    (compute_diagnostics) plus the batched HDI above. `var_names` labels
-    the rows (defaults to x0..x{D-1}).
+    Keys: "variable" (the row labels: `var_names`, default x0..x{D-1}),
+    then mean, sd, hdi_lo, hdi_hi, mcse_mean, ess_bulk, ess_tail, r_hat as
+    (D,) numpy arrays — built from the same on-device estimators the gates
+    use (compute_diagnostics) plus the batched HDI above.
 
     samples: (draws, chains, dim) history, or flat (n, dim) draws —
     treated as one chain (split-R-hat still applies across its halves),
     matching hdi()'s accepted shapes.
     """
-    import pandas as pd
-
     samples = jnp.asarray(samples)
     if samples.ndim == 2:
         samples = samples[:, None, :]
@@ -156,19 +152,18 @@ def summary(samples, hdi_prob: float = 0.94, var_names=None):
     if var_names is None:
         var_names = [f"x{i}" for i in range(dim)]
     pct = f"{hdi_prob * 100:g}%"
-    return pd.DataFrame(
-        {
-            "mean": d["mean"],
-            "sd": d["sd"],
-            f"hdi_lo_{pct}": lo,
-            f"hdi_hi_{pct}": hi,
-            "mcse_mean": d["mcse_mean"],
-            "ess_bulk": d["ess_bulk"],
-            "ess_tail": d["ess_tail"],
-            "r_hat": d["r_hat"],
-        },
-        index=var_names,
-    )
+    columns = {
+        "mean": d["mean"],
+        "sd": d["sd"],
+        f"hdi_lo_{pct}": lo,
+        f"hdi_hi_{pct}": hi,
+        "mcse_mean": d["mcse_mean"],
+        "ess_bulk": d["ess_bulk"],
+        "ess_tail": d["ess_tail"],
+        "r_hat": d["r_hat"],
+    }
+    return {"variable": list(var_names),
+            **{k: np.asarray(v) for k, v in columns.items()}}
 
 
 __all__ = [

@@ -16,7 +16,7 @@ assessing convergence of MCMC":
 
 Everything is vectorized over the trailing ``dim`` axis and jit-compatible, so
 diagnostics for 10^5-chain runs never leave the device: the only cross-chain
-ops in the whole framework are the reductions here, which XLA lowers to ICI
+ops in the whole framework are the reductions here, which XLA lowers to
 collectives when the chain axis is sharded over a mesh.
 
 Sample layout convention matches the framework ABI: (num_samples, n_chains, dim).
@@ -60,11 +60,12 @@ def _rank_normalize(x):
     Average ranks for ties (exact match with scipy.stats.rankdata
     method='average'): in sort order each element's tie run [lo, e] is found
     with forward/backward max-scans over run boundaries; average 1-based rank
-    = (lo + e + 2) / 2.  Both permutation steps are two-operand `lax.sort`s
-    (value-keyed, carrying a payload): TPU `searchsorted` lowers to
-    binary-search gathers (measured ~50x slower than sort at 4M pooled
-    values), and re-sorting keyed on the permutation applies the inverse
-    permutation without argsort or gather.
+    = (lo + e + 2) / 2.  The sort is a two-operand `lax.sort` carrying the
+    original index (`searchsorted` would lower to binary-search gathers);
+    the inverse permutation is one scatter with unique indices. (Inverting
+    it by a second sort keyed on the permutation is rewritten by XLA's GPU
+    permutation-sort simplifier into a scatter that fails HLO verification
+    inside a shard_map'd program — jax 0.9.0.)
     z = ndtri((rank - 3/8) / (S + 1/4)), evaluated tail-safely (_z_from_rank2).
     """
     n, m, d = x.shape
@@ -81,7 +82,9 @@ def _rank_normalize(x):
     k2 = lo + e + 2                  # = 2 * average_rank (1-based)
 
     z_sorted = _z_from_rank2(k2, N).astype(flat.dtype)
-    _, z = lax.sort((perm, z_sorted), dimension=0, num_keys=1)
+    cols = lax.broadcasted_iota(jnp.int32, (N, d), 1)
+    z = jnp.zeros_like(z_sorted).at[perm, cols].set(z_sorted,
+                                                    unique_indices=True)
     return z.reshape(n, m, d)
 
 

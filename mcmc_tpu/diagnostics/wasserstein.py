@@ -1,8 +1,8 @@
-"""Sliced Wasserstein-2 distance as a single fused TPU computation.
+"""Sliced Wasserstein-2 distance as a single fused device computation.
 
 The reference computes this on host in Python-loop batches of projections
 (reference benchmarks/metrics.py:12-145). Here the projection step is one
-matmul (n, dim) @ (dim, P) — MXU work — followed by ``jax.lax.sort`` along the
+matmul (n, dim) @ (dim, P) — followed by ``jax.lax.sort`` along the
 sample axis, all inside one jit. Batched projections are kept as an option for
 very large sample sets, but the default is a single fused call.
 
@@ -28,7 +28,7 @@ def _unshard(x: jnp.ndarray) -> jnp.ndarray:
     On a history sharded over chains (mesh runs), that axis is distributed,
     and GSPMD lowers each of the 500 projected sorts to a global multi-device
     sort — measured 257s vs 24s on the 8-virtual-device CPU mesh for the
-    standard protocol, and an all-to-all storm on real ICI. The sample sets
+    standard protocol, and an all-to-all storm across devices. The sample sets
     here are protocol-capped (50k rows x dim), so one explicit gather to a
     single device is strictly cheaper than any distributed sort. No-op for
     single-device arrays.

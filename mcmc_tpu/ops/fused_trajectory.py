@@ -1,30 +1,29 @@
-"""Fused GRAHMC/HMC transition as a single Pallas TPU kernel.
+"""Fused HMC/GRAHMC transition as one Pallas kernel, compiled through Triton.
 
-One kernel call = one full MH transition for a tile of chains, entirely in
-VMEM:
+One kernel call = one full MH transition for a tile of chains, with the
+chain state held on the SM for the whole trajectory:
 
-  momentum refresh (on-chip PRNG, Box-Muller)
-  -> L conformal-leapfrog substeps with the analytic target gradient inlined
-     (friction gamma(t) evaluated per substep; absent for HMC)
+  L conformal-leapfrog substeps with the analytic target gradient inlined
+  (friction gamma(t) evaluated per substep; absent for HMC)
   -> energies with the non-finite guard
   -> Metropolis accept and state select
 
-This is the SURVEY.md north-star fusion: the reference's per-substep
-vmap(value_and_grad) scan becomes one on-chip loop with zero HBM round-trips
-inside the trajectory.
+The XLA integrator (samplers/trajectory.py) is a scan of L substeps, and an
+elementwise target has no matmul to hide behind, so each substep writes the
+(chains, d) q/p/grad state back to device memory. Here that state crosses
+device memory once per transition.
 
-Two block layouts (see ops/padded_targets.py), selected automatically by
-padding waste:
+Randomness is drawn outside with jax.random: the momenta p0 (one (C, d) read
+per transition) and the accept uniforms. The kernel body is therefore
+deterministic given its inputs, which is what the parity tests against the
+XLA trajectory rely on.
 
-- lane layout: (chains_tile, d_pad128) — dim on the 128-wide lane axis,
-- transposed:  (d_pad8, chains_tile)  — CHAINS on lanes, dim padded only to
-  the 8-sublane granule. For dim=50 this processes 56 rows instead of 128
-  lanes: ~2.3x less VPU work.
-
-The kernel is float32 throughout (TPU fast path). Statistical correctness is
-validated by the same quality gates as the XLA path; a deterministic variant
-with injectable randomness (``make_debug_trajectory``) exists for
-bitwise-level trajectory comparison in tests.
+Layout: blocks of (chain_tile, d_pad) with chains on rows and the dim axis
+padded to a power of two (Triton's block rule; at least 16, the smallest
+operand `pl.dot` takes for the dense metric). Arrays stay unpadded in device
+memory; masked loads zero-fill the padding columns and the rows past the
+last chain, and masked stores drop them. The kernel is float32 throughout;
+the dense metric's matmul runs at full float32 precision (not TF32).
 """
 
 import math
@@ -34,88 +33,60 @@ import jax
 import jax.numpy as jnp
 from jax import lax, random
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from mcmc_tpu import precision
 from mcmc_tpu.ops.memo import memoize_on_target
-from mcmc_tpu.ops.padded_targets import make_padded_vag, _mask_row
+from mcmc_tpu.ops.padded_targets import make_padded_vag
 
 ENERGY_OVERFLOW = 1e10
 DIVERGENCE_DELTA_H = 1000.0
-LANE = 128
-SUBLANE = 8
 TWO_PI = 2.0 * math.pi
+N_SCALARS = 8             # scalar operand length (a power of two)
+# Chains per block and warps per block, chosen by a tile sweep on the H100
+# (PERF.md, "Kernel decisions on the H100").
+CHAIN_TILE = 32
+NUM_WARPS = 4
 
 
-def _round_up(x, m):
-    return ((x + m - 1) // m) * m
+def block_dim(dim: int) -> int:
+    """Padded block width of the dim axis: a power of two, at least 16."""
+    return max(16, pl.next_power_of_2(dim))
 
 
-def _pad_dense_block(inv_mass_matrix, dim: int, d_pad: int):
-    """Pad a dense (dim, dim) M^{-1} to the block-diagonal (d_pad, d_pad)
-    [[M^{-1}, 0], [0, I]]. The identity padding block keeps the padding
-    dims decoupled (momentum padding components never leak into real dims;
-    the kernel's mask zeroes them afterwards)."""
-    pad = d_pad - dim
-    invm_p = jnp.pad(jnp.asarray(inv_mass_matrix, jnp.float32),
-                     ((0, pad), (0, pad)))
-    if pad:
-        eye_tail = jnp.concatenate(
-            [jnp.zeros(dim, jnp.float32), jnp.ones(pad, jnp.float32)])
-        invm_p = invm_p + jnp.diag(eye_tail)
-    return invm_p
-
-
-def _factor_dense_metric(inv_mass_matrix, dim: int, d_pad: int):
-    """_pad_dense_block plus the momentum unwhitening factor L^{-1}.
-
-    With M^{-1} = L L^T (Cholesky), p = z L^{-1} (rows = chains) has
-    covariance L^{-T} L^{-1} = M — the identical-distribution matmul form
-    of sample_momentum's triangular solve (trajectory.py:49), chosen so the
-    in-kernel draw is one MXU matmul."""
-    from jax.scipy.linalg import solve_triangular
-
-    invm_p = _pad_dense_block(inv_mass_matrix, dim, d_pad)
-    chol = jnp.linalg.cholesky(invm_p)
-    l_inv = solve_triangular(chol, jnp.eye(d_pad, dtype=jnp.float32),
-                             lower=True)
-    return invm_p, l_inv
-
-
-def _pad_dense_metric(inv_mass_matrix, dim: int, d_pad: int, dim_axis: int):
-    """_factor_dense_metric with the factor oriented for the block layout.
-
-    Lane layout (ax=1) consumes z @ W with W = L^{-1}; transposed (ax=0)
-    consumes W' @ z with W' = W^T = L^{-T}; apply with unwhiten_op."""
-    invm_p, l_inv = _factor_dense_metric(inv_mass_matrix, dim, d_pad)
-    return invm_p, (l_inv if dim_axis == 1 else l_inv.T)
+def chain_tile_for(n_chains: int) -> int:
+    """Power-of-two chain tile: CHAIN_TILE, no larger than needed for
+    n_chains, and at least 16 (the row minimum of `pl.dot`)."""
+    return max(16, min(CHAIN_TILE, pl.next_power_of_2(n_chains)))
 
 
 class PreparedDenseMetric(NamedTuple):
     """A dense M^{-1} factored ONCE for reuse across fused-kernel calls.
 
     The fused closures accept this anywhere they accept a raw (dim, dim)
-    inv_mass_matrix. The point: inside `lax.switch` branches (ChEES
-    quantized-jitter sampling) XLA's while-loop invariant code motion
-    cannot hoist instructions out of the nested branch computations, so a
-    raw dense metric would pay the Cholesky + triangular solve on EVERY
-    draw; preparing up front moves the factorization outside the scan.
-    Build with prepare_dense_metric using the same layout the consuming
-    kernel uses (d_pad is shape-validated at the call)."""
-    invm: jax.Array      # (d_pad, d_pad) block-diagonal padded M^{-1}
-    l_inv: jax.Array     # lower-triangular L^{-1} (layout-neutral)
+    inv_mass_matrix. Inside `lax.switch` branches (ChEES quantized-jitter
+    sampling) XLA's loop-invariant code motion cannot hoist the Cholesky
+    and triangular solve out of the nested branch computations, so a raw
+    dense metric would pay them on EVERY draw; preparing up front moves the
+    factorization outside the scan."""
+    invm: jax.Array      # (d_pad, d_pad) zero-padded M^{-1}
+    l_inv: jax.Array     # (dim, dim) lower-triangular L^{-1}, M^{-1} = L L^T
 
 
-def prepare_dense_metric(inv_mass_matrix, dim: int, layout: str = "auto"):
+def prepare_dense_metric(inv_mass_matrix, dim: int) -> PreparedDenseMetric:
     """Factor a dense (dim, dim) M^{-1} once, outside any sampling loop.
 
-    layout must match the consuming kernel: 'auto' follows choose_layout
-    (make_fused_grahmc_step's default); the multi-transition and NUTS
-    window kernels are transposed-layout ('transposed') only."""
-    dim_axis = choose_layout(dim) if layout == "auto" else (
-        1 if layout == "lanes" else 0)
-    d_pad = _round_up(dim, LANE if dim_axis == 1 else SUBLANE)
-    return PreparedDenseMetric(*_factor_dense_metric(
-        inv_mass_matrix, dim, d_pad))
+    With M^{-1} = L L^T, momenta p = z L^{-1} (rows = chains) have
+    covariance L^{-T} L^{-1} = M — the matmul form of sample_momentum's
+    triangular solve (samplers/trajectory.py)."""
+    from jax.scipy.linalg import solve_triangular
+
+    invm = jnp.asarray(inv_mass_matrix, jnp.float32)
+    chol = jnp.linalg.cholesky(invm)
+    l_inv = solve_triangular(chol, jnp.eye(dim, dtype=jnp.float32),
+                             lower=True)
+    pad = block_dim(dim) - dim
+    return PreparedDenseMetric(jnp.pad(invm, ((0, pad), (0, pad))), l_inv)
 
 
 def is_dense_metric(inv_mass_matrix) -> bool:
@@ -124,135 +95,30 @@ def is_dense_metric(inv_mass_matrix) -> bool:
             or jnp.ndim(inv_mass_matrix) == 2)
 
 
-def _resolve_dense_metric(inv_mass_matrix, dim: int, d_pad: int,
-                          dim_axis: int):
-    """(padded M^{-1}, layout-oriented unwhitening factor) from either a
-    raw dense matrix (factored here, per call) or a PreparedDenseMetric
-    (factored once by the caller)."""
-    if isinstance(inv_mass_matrix, PreparedDenseMetric):
-        if inv_mass_matrix.invm.shape != (d_pad, d_pad):
-            raise ValueError(
-                f"PreparedDenseMetric was built for d_pad "
-                f"{inv_mass_matrix.invm.shape[0]}; this kernel needs "
-                f"{d_pad} — prepare with the consuming kernel's layout")
-        l_inv = inv_mass_matrix.l_inv
-        return inv_mass_matrix.invm, (l_inv if dim_axis == 1 else l_inv.T)
-    return _pad_dense_metric(inv_mass_matrix, dim, d_pad, dim_axis)
-
-
-def unwhiten_op(w, ax: int):
-    """z -> momentum-with-covariance-M closure for _pad_dense_metric's
-    layout-oriented factor: z @ W in the lane layout (ax=1, W = L^{-1}),
-    W' @ z transposed (ax=0, W' = L^{-T}). The ONE place that pairs the
-    factor's orientation with its matmul; vmap it for batched (T, ...)
-    draws."""
-    if ax == 1:
-        return lambda z: jnp.dot(z, w, preferred_element_type=jnp.float32)
-    return lambda z: jnp.dot(w, z, preferred_element_type=jnp.float32)
-
-
-def select_chain_tile(n_chains: int, d_pad: int, transitions: int,
-                      chain_tile: Optional[int] = None,
-                      has_data: bool = False) -> int:
-    """Chain-tile size for multi-transition kernels (transposed layout).
-
-    The (T, d_pad, tile) per-transition history block must fit scoped VMEM
-    alongside the state (512 measured safe for T<=8 at d_pad 56): cap the
-    window at ~2 MiB. Divisibility into n_chains is re-checked after every
-    halving — a shrink through an odd tile must never leave a grid that
-    skips chains.
-    """
-    tile = chain_tile or (256 if has_data else 512)
-    tile = min(tile, n_chains)
-    while tile > 1 and (n_chains % tile
-                        or transitions * d_pad * tile * 4 > (2 << 20)):
-        tile //= 2
-    return tile
-
-
-def choose_layout(dim: int) -> int:
-    """dim_axis with the least padding waste: 1 = lane layout (C, d_pad128),
-    0 = transposed (d_pad8, C)."""
-    waste_lane = 1.0 - dim / _round_up(dim, LANE)
-    waste_t = 1.0 - dim / _round_up(dim, SUBLANE)
-    return 0 if waste_t < waste_lane else 1
-
-
-def seed_words_from_key(key):
-    """Two int32 seed words deterministically derived from a JAX PRNG key.
-
-    The fused kernel's on-chip PRNG is seeded with BOTH threefry key words
-    (64 bits), so two different step keys can never yield the same on-chip
-    stream short of a full threefry key collision — unlike a fresh 31-bit
-    random.randint per call, whose birthday probability over a 12.5k-step run
-    was ~2%. The per-step key is already split from the run key, so streams
-    are reproducible from (initial key, step index)."""
-    data = key
-    if jnp.issubdtype(key.dtype, jax.dtypes.prng_key):
-        data = random.key_data(key)
-    words = jnp.asarray(data).reshape(-1)[:2]
-    return lax.bitcast_convert_type(words.astype(jnp.uint32), jnp.int32)
-
-
-def _bits_to_uniform(bits):
-    """random bits -> float32 uniform in (0, 1): 24-bit mantissa, never 0.
-
-    prng_random_bits yields int32 on TPU; bitcast to uint32 so the shift is
-    logical (an arithmetic shift of negative bits would sign-extend). Mosaic
-    cannot cast uint32->float32, so bitcast back to int32 after the shift
-    (value-preserving: the top bits are clear)."""
-    bits = pltpu.bitcast(bits, jnp.uint32) >> 8
-    return (pltpu.bitcast(bits, jnp.int32).astype(jnp.float32)
-            * (2.0 ** -24) + (2.0 ** -25))
-
-
-def _gaussian(shape):
-    """Standard normal via Box-Muller from on-chip uniform draws.
-
-    Uses the full transform — each (u1, u2) pair yields TWO independent
-    normals, r·cos and r·sin — when the leading axis is even (always true
-    for sublane-padded blocks), halving the prng/log/sqrt work per normal."""
-    if len(shape) == 2 and shape[0] % 2 == 0 and shape[0] > 1:
-        half = (shape[0] // 2, shape[1])
-        u1 = _bits_to_uniform(pltpu.prng_random_bits(half))
-        u2 = _bits_to_uniform(pltpu.prng_random_bits(half))
-        r = jnp.sqrt(-2.0 * jnp.log(u1))
-        theta = TWO_PI * u2
-        return jnp.concatenate([r * jnp.cos(theta), r * jnp.sin(theta)],
-                               axis=0)
-    u1 = _bits_to_uniform(pltpu.prng_random_bits(shape))
-    u2 = _bits_to_uniform(pltpu.prng_random_bits(shape))
-    return jnp.sqrt(-2.0 * jnp.log(u1)) * jnp.cos(TWO_PI * u2)
-
-
-def _metric_ops(invm, dense: bool, ax: int):
+def _metric_ops(invm, dense: bool):
     """(velocity, kinetic) closures for a diagonal or dense metric.
 
-    Diagonal: invm is a broadcast row/column of M^{-1} diag entries.
-    Dense: invm is the full (d_pad, d_pad) block-diagonal M^{-1} (identity
-    in the padding block) and velocity is one MXU matmul per call —
-    (C, D) @ (D, D) in the lane layout, (D, D) @ (D, C) transposed
-    (M^{-1} is symmetric, so both orientations compute M^{-1} p)."""
-    if not dense:
+    Diagonal: invm is a (1, d_pad) row of M^{-1} diag entries. Dense: invm
+    is the zero-padded (d_pad, d_pad) M^{-1} and velocity is one float32
+    matmul per call (M^{-1} is symmetric, so p @ M^{-1} is M^{-1} p per
+    chain)."""
+    if dense:
         def vel(p):
-            return p * invm
-    elif ax == 1:
-        def vel(p):
-            return jnp.dot(p, invm, preferred_element_type=jnp.float32)
+            return pl.dot(p, invm, precision=lax.Precision.HIGHEST)
     else:
         def vel(p):
-            return jnp.dot(invm, p, preferred_element_type=jnp.float32)
+            return p * invm
 
     def kin(p):
-        return 0.5 * jnp.sum(p * vel(p), axis=ax, keepdims=True)
+        return 0.5 * jnp.sum(p * vel(p), axis=1, keepdims=True)
 
     return vel, kin
 
 
 def _integrate(q0, p0, lp0, grad0, vag, eps, num_steps, friction_schedule,
                gamma_max, steepness, vel):
-    """L conformal-leapfrog substeps entirely in VMEM (the hot loop).
-    `vel` maps momentum to velocity M^{-1} p (see _metric_ops)."""
+    """L conformal-leapfrog substeps on the block (the hot loop). `vel`
+    maps momentum to velocity M^{-1} p (see _metric_ops)."""
     half_eps = 0.5 * eps
     total_time = eps * num_steps
 
@@ -260,8 +126,8 @@ def _integrate(q0, p0, lp0, grad0, vag, eps, num_steps, friction_schedule,
         q, p, lp, grad = carry
         if friction_schedule is not None:
             # midpoint friction grid (samplers/trajectory.py) — keeps the
-            # kernel bit-consistent with the XLA integrator AND the
-            # conformal map volume-neutral + involutive
+            # kernel consistent with the XLA integrator AND the conformal
+            # map volume-neutral + involutive
             gamma_t = friction_schedule((i.astype(jnp.float32) + 0.5) * eps,
                                         total_time, gamma_max, steepness)
             scale = jnp.exp(-gamma_t * half_eps)
@@ -278,228 +144,272 @@ def _integrate(q0, p0, lp0, grad0, vag, eps, num_steps, friction_schedule,
 
 
 def _make_kernel(padded_vag: Callable, num_steps: int,
-                 friction_schedule: Optional[Callable],
-                 inject_randoms: bool, dim_axis: int, dense: bool = False,
-                 scaled: bool = False, bridged: bool = False):
+                 friction_schedule: Optional[Callable], n_chains: int,
+                 dim: int, tile: int, d_pad: int, dense: bool,
+                 scaled: bool, bridged: bool):
     """Kernel body factory. Ref order:
-    seed(SMEM), scalars(SMEM), q, lp, grad, inv_mass, mask
-    [, base_mean, base_inv_scale if bridged]
-    [, unwhiten if dense on-chip RNG]
-    [, data... for data-carrying targets][, p0, u if inject_randoms]
-    -> q_out, lp_out, grad_out, acc_out, dh_out.
+    scalars, q, lp, grad, p0, u, inv_mass [, base_mean, base_inv_scale]
+    -> q_out, lp_out, grad_out, acc_out, dh_out, prop_q_out, prop_lp_out.
 
-    Per-chain scalars (lp, accept, dh) are (C, 1) blocks in the lane layout
-    and (1, C) blocks in the transposed layout; inv_mass/mask broadcast along
-    the chain axis. With a dense metric inv_mass is the whole (d_pad, d_pad)
-    block-diagonal M^{-1} and unwhiten carries the layout-oriented L^{-1}
-    factor (p = L^{-1}-transformed z ~ N(0, M)) for on-chip momentum draws.
-    Targets tagged with `data_arrays` (e.g. the hierarchical logistic's
-    design matrix) receive those arrays as whole-array VMEM refs — Pallas
-    kernels cannot capture constant arrays."""
-    ax = dim_axis
-    n_data_refs = len(getattr(padded_vag, "data_arrays", ()))
-    has_unwhiten = dense and not inject_randoms
+    (C, dim) arrays are read as (tile, d_pad) blocks and per-chain arrays
+    as (tile,) blocks; rows past n_chains and columns past dim are masked.
+    scalars = [eps, gamma, steepness, lp_scale | beta, base_log_norm, 0...].
+    """
     if scaled and bridged:
         raise ValueError("scaled and bridged kernels are mutually exclusive")
 
-    def kernel(seed_ref, scal_ref, q_ref, lp_ref, grad_ref, invm_ref,
-               mask_ref, *rest):
+    def kernel(scal_ref, q_ref, lp_ref, grad_ref, p0_ref, u_ref, invm_ref,
+               *rest):
         if bridged:
-            bmean_ref, biscale_ref, rest = rest[0], rest[1], rest[2:]
-        if has_unwhiten:
-            unwhiten_ref, rest = rest[0], rest[1:]
-        data_vals = tuple(r[:] for r in rest[:n_data_refs])
-        rest = rest[n_data_refs:]
-        if data_vals:
-            base_vag = padded_vag
+            bmean_ref, biscale_ref, *rest = rest
+        (q_out, lp_out, grad_out, acc_out, dh_out,
+         prop_out, prop_lp_out) = rest
 
-            def vag_with_data(q):
-                return base_vag(q, *data_vals)
-        else:
-            vag_with_data = padded_vag
-        if inject_randoms:
-            (p0_ref, u_ref, q_out, lp_out, grad_out, acc_out, dh_out,
-             prop_out, prop_lp_out) = rest
-        else:
-            (q_out, lp_out, grad_out, acc_out, dh_out,
-             prop_out, prop_lp_out) = rest
-            # 64-bit stream identity from the step key; distinct per grid tile
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0) * 7919,
-                            seed_ref[1])
+        rows = pl.program_id(0) * tile + lax.broadcasted_iota(
+            jnp.int32, (tile,), 0)
+        row_ok = rows < n_chains
+        col_ok = lax.broadcasted_iota(jnp.int32, (1, d_pad), 1) < dim
+        block_ok = row_ok[:, None] & col_ok
+
+        def load_block(ref):
+            return plgpu.load(ref, mask=block_ok, other=0.0)
+
+        def load_chains(ref):
+            return plgpu.load(ref, mask=row_ok, other=0.0)[:, None]
+
+        def store_block(ref, val):
+            plgpu.store(ref, val, mask=block_ok)
+
+        def store_chains(ref, val):
+            plgpu.store(ref, val.reshape(tile), mask=row_ok)
 
         eps = scal_ref[0]
         gamma_max = scal_ref[1]
         steepness = scal_ref[2]
+        vag = padded_vag
         if scaled:
             # Tempered-replica support (samplers/tempered.py): the target
             # log-density and gradient are scaled by a runtime beta inside
-            # the hot loop (tempered grad = beta * grad). Static-gated so
-            # the untempered kernels pay zero extra VPU ops.
+            # the hot loop. Static-gated so the untempered kernel pays
+            # nothing for it.
             lp_scale = scal_ref[3]
-            base_vag_s = vag_with_data
 
-            def vag_with_data(qq):
-                lp_s, g_s = base_vag_s(qq)
+            def vag(qq):
+                lp_s, g_s = padded_vag(qq)
                 return lp_scale * lp_s, lp_scale * g_s
         if bridged:
             # Annealed-SMC geometric bridge (samplers/smc.py): the move
             # kernel targets pi_b = beta*logp + (1-beta)*log N(mean, S^2 I)
-            # with a RUNTIME beta — the spherical-Gaussian base is evaluated
-            # in-kernel from broadcast mean / 1/scale rows (padding entries
-            # of both are ZERO, so padded q coordinates contribute nothing
-            # to the base term either). Static-gated like `scaled`.
+            # with a RUNTIME beta; the spherical-Gaussian base is evaluated
+            # in-kernel from broadcast mean / 1/scale rows, whose padding
+            # entries load as ZERO, so padded coordinates contribute nothing.
             beta = scal_ref[3]
             base_log_norm = scal_ref[4]
-            target_vag_b = vag_with_data
-            bmean = bmean_ref[:]
-            biscale = biscale_ref[:]
+            row_mask = jnp.broadcast_to(col_ok, (1, d_pad))
+            bmean = plgpu.load(bmean_ref, mask=row_mask, other=0.0)
+            biscale = plgpu.load(biscale_ref, mask=row_mask, other=0.0)
 
-            def vag_with_data(qq):
-                lt, gt = target_vag_b(qq)
+            def vag(qq):
+                lt, gt = padded_vag(qq)
                 z = (qq - bmean) * biscale
-                lb = (-0.5 * jnp.sum(z * z, axis=ax, keepdims=True)
+                lb = (-0.5 * jnp.sum(z * z, axis=1, keepdims=True)
                       + base_log_norm)
                 return (beta * lt + (1.0 - beta) * lb,
                         beta * gt - (1.0 - beta) * (z * biscale))
 
-        q0 = q_ref[:]
-        lp0 = lp_ref[:]
-        grad0 = grad_ref[:]
-        invm = invm_ref[:]          # diag: padding 1.0; dense: identity block
-        mask = mask_ref[:]
-        vel, kin = _metric_ops(invm, dense, ax)
-
-        if inject_randoms:
-            p0 = p0_ref[:] * mask
-        elif dense:
-            z = _gaussian(q0.shape)
-            p0 = unwhiten_op(unwhiten_ref[:], ax)(z) * mask
+        if dense:
+            invm = invm_ref[...]
         else:
-            p0 = _gaussian(q0.shape) / jnp.sqrt(invm) * mask
+            invm = plgpu.load(invm_ref, mask=jnp.broadcast_to(
+                col_ok, (1, d_pad)), other=0.0)
+        vel, kin = _metric_ops(invm, dense)
 
+        q0 = load_block(q_ref)
+        lp0 = load_chains(lp_ref)
+        p0 = load_block(p0_ref)
         h0 = -lp0 + kin(p0)
 
         q1, p1, lp1, grad1 = _integrate(
-            q0, p0, lp0, grad0, vag_with_data, eps, num_steps,
+            q0, p0, lp0, load_block(grad_ref), vag, eps, num_steps,
             friction_schedule, gamma_max, steepness, vel)
 
-        p1 = -p1
-        h1 = -lp1 + kin(p1)
-        h1 = jnp.where(jnp.isfinite(h1), h1, ENERGY_OVERFLOW)
+        h1 = -lp1 + kin(-p1)              # momentum flip for reversibility
+        finite = jnp.isfinite(h1)
+        h1 = jnp.where(finite, h1, ENERGY_OVERFLOW)
+        u = plgpu.load(u_ref, mask=row_ok, other=0.5)[:, None]
+        # non-finite proposals are rejected outright (see grahmc_step)
+        accept = finite & (jnp.log(u) < jnp.minimum(0.0, h0 - h1))
 
-        log_alpha = h0 - h1
-        dh = h1 - h0
-
-        if inject_randoms:
-            u = u_ref[:]
-        else:
-            u = _bits_to_uniform(pltpu.prng_random_bits(h0.shape))
-        accept = jnp.log(u) < jnp.minimum(0.0, log_alpha)   # per-chain, keepdims
-
-        q_out[:] = jnp.where(accept, q1, q0)
-        lp_out[:] = jnp.where(accept, lp1, lp0)
-        grad_out[:] = jnp.where(accept, grad1, grad0)
-        acc_out[:] = accept.astype(jnp.float32)
-        dh_out[:] = dh
+        # the start state is re-read rather than carried through the loop:
+        # it would otherwise hold registers for the whole trajectory
+        store_block(q_out, jnp.where(accept, q1, load_block(q_ref)))
+        store_block(grad_out, jnp.where(accept, grad1, load_block(grad_ref)))
+        store_chains(lp_out, jnp.where(accept, lp1, lp0))
+        store_chains(acc_out, accept.astype(jnp.float32))
+        store_chains(dh_out, h1 - h0)
         # true trajectory endpoint (the MH proposal), exported regardless of
         # the accept decision — exact track_proposals/ESJD parity with the
         # XLA step
-        prop_out[:] = q1
-        prop_lp_out[:] = lp1
+        store_block(prop_out, q1)
+        store_chains(prop_lp_out, lp1)
 
     return kernel
 
 
-def _build_call(padded_vag, num_steps, friction_schedule, n_chains, d_pad,
-                chain_tile, inject_randoms, interpret, dim_axis,
-                dense=False, scaled=False, bridged=False):
+def _build_call(padded_vag, num_steps, friction_schedule, n_chains, dim,
+                interpret, dense=False, scaled=False, bridged=False):
+    d_pad = block_dim(dim)
+    tile = chain_tile_for(n_chains)
     kernel = _make_kernel(padded_vag, num_steps, friction_schedule,
-                          inject_randoms, dim_axis, dense=dense,
-                          scaled=scaled, bridged=bridged)
-    grid = (n_chains // chain_tile,)
-
-    if dim_axis == 1:
-        # blocks (chain_tile, width); chain tiles advance along axis 0
-        def state_spec(width):
-            return pl.BlockSpec((chain_tile, width), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)
-
-        def bcast_spec(width):
-            return pl.BlockSpec((1, width), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        full = state_spec(d_pad)
-        per_chain = state_spec(1)
-        dim_shape = (n_chains, d_pad)
-        chain_shape = (n_chains, 1)
-    else:
-        # transposed: blocks (height, chain_tile); tiles advance along axis 1
-        def state_spec_t(height):
-            return pl.BlockSpec((height, chain_tile), lambda i: (0, i),
-                                memory_space=pltpu.VMEM)
-
-        def bcast_spec(height):
-            return pl.BlockSpec((height, 1), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        full = state_spec_t(d_pad)
-        per_chain = state_spec_t(1)
-        dim_shape = (d_pad, n_chains)
-        chain_shape = (1, n_chains)
-
-    # whole (d_pad, d_pad) matrix, same block for every grid tile (dense
-    # metric M^{-1} and its unwhitening factor)
-    matrix_spec = pl.BlockSpec((d_pad, d_pad), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM)
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),   # seed (1,)
-        pl.BlockSpec(memory_space=pltpu.SMEM),   # scalars (3,)
-        full,                                     # q
-        per_chain,                                # lp
-        full,                                     # grad
-        matrix_spec if dense else bcast_spec(d_pad),    # inv_mass
-        bcast_spec(d_pad),                        # mask
-    ]
-    if dim_axis == 1:
-        if not dense:
-            in_specs[5] = pl.BlockSpec((1, d_pad), lambda i: (0, 0),
-                                       memory_space=pltpu.VMEM)
-        in_specs[6] = pl.BlockSpec((1, d_pad), lambda i: (0, 0),
-                                   memory_space=pltpu.VMEM)
+                          n_chains, dim, tile, d_pad, dense, scaled, bridged)
+    block = pl.BlockSpec((tile, d_pad), lambda i: (i, 0))
+    per_chain = pl.BlockSpec((tile,), lambda i: (i,))
+    row = pl.BlockSpec((1, d_pad), lambda i: (0, 0))
+    whole = pl.BlockSpec((N_SCALARS,), lambda i: (0,))
+    invm_spec = (pl.BlockSpec((d_pad, d_pad), lambda i: (0, 0)) if dense
+                 else row)
+    in_specs = [whole, block, per_chain, block, block, per_chain, invm_spec]
     if bridged:
-        # base_mean + base_inv_scale rows, same broadcast shape as mask
-        in_specs += [in_specs[6], in_specs[6]]
-    if dense and not inject_randoms:
-        in_specs.append(matrix_spec)              # unwhiten (L^{-1} factor)
-    for arr in getattr(padded_vag, "data_arrays", ()):
-        # whole-array constant data (same block for every grid tile)
-        in_specs.append(pl.BlockSpec(arr.shape,
-                                     lambda i, _rank=len(arr.shape): (0,) * _rank,
-                                     memory_space=pltpu.VMEM))
-    if inject_randoms:
-        in_specs += [full, per_chain]             # p0, u
+        in_specs += [row, row]
 
-    out_shape = [
-        jax.ShapeDtypeStruct(dim_shape, jnp.float32),    # q
-        jax.ShapeDtypeStruct(chain_shape, jnp.float32),  # lp
-        jax.ShapeDtypeStruct(dim_shape, jnp.float32),    # grad
-        jax.ShapeDtypeStruct(chain_shape, jnp.float32),  # accept
-        jax.ShapeDtypeStruct(chain_shape, jnp.float32),  # delta_h
-        jax.ShapeDtypeStruct(dim_shape, jnp.float32),    # proposal q
-        jax.ShapeDtypeStruct(chain_shape, jnp.float32),  # proposal lp
-    ]
-    out_specs = [full, per_chain, full, per_chain, per_chain, full, per_chain]
+    def f32(shape):
+        return jax.ShapeDtypeStruct(shape, jnp.float32)
 
-    if interpret and not inject_randoms:
-        # The generic HLO interpreter lacks the TPU PRNG primitives; use the
-        # TPU-semantics interpreter for kernels with on-chip RNG.
-        interpret = pltpu.InterpretParams()
     return pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(pl.cdiv(n_chains, tile),),
         in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
+        out_specs=[block, per_chain, block, per_chain, per_chain, block,
+                   per_chain],
+        out_shape=[f32((n_chains, dim)), f32((n_chains,)),
+                   f32((n_chains, dim)), f32((n_chains,)), f32((n_chains,)),
+                   f32((n_chains, dim)), f32((n_chains,))],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
+        name="fused_grahmc_transition",
     )
+
+
+def _interpret(backend: str) -> bool:
+    """Map a resolved kernel backend (ops/padded_targets.resolve_backend) to
+    pallas_call's interpret flag: 'interpret' runs the kernel under the
+    Pallas interpreter; 'pallas' is the compiled kernel, which exists only
+    for the GPU — anything else is refused, never sent to the interpreter."""
+    if backend == "interpret":
+        return True
+    if backend != "pallas":
+        raise ValueError(f"the fused kernel runs as 'pallas' or 'interpret', "
+                         f"not {backend!r}")
+    if jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the fused trajectory kernel is compiled through Triton for a "
+            f"GPU; the default backend is {jax.default_backend()!r}. Use "
+            "backend='xla', or backend='interpret' to run the kernel under "
+            "the Pallas interpreter")
+    return False
+
+
+def _scalars(step_size, gamma, steepness, extra=()):
+    vals = [step_size, gamma, steepness, *extra]
+    vals += [0.0] * (N_SCALARS - len(vals))
+    return jnp.stack([jnp.asarray(v, jnp.float32) for v in vals])
+
+
+def _bridge_operands(bridge, dim):
+    """(beta, base_log_norm) scalars and the (1, dim) mean / 1/scale rows of
+    the SMC bridge's spherical-Gaussian base."""
+    beta, base_mean, base_scale = bridge
+    bmean = jnp.broadcast_to(jnp.asarray(base_mean, jnp.float32), (dim,))
+    bscale = jnp.broadcast_to(jnp.asarray(base_scale, jnp.float32), (dim,))
+    base_log_norm = -jnp.sum(jnp.log(bscale)) - 0.5 * dim * math.log(TWO_PI)
+    return ((beta, base_log_norm),
+            (bmean[None, :], (1.0 / bscale)[None, :]))
+
+
+def _metric_operand(inv_mass_matrix, dim):
+    """Kernel operand for the metric: the (1, dim) diagonal row, or the
+    zero-padded (d_pad, d_pad) dense M^{-1}."""
+    if isinstance(inv_mass_matrix, PreparedDenseMetric):
+        d_pad = block_dim(dim)
+        if inv_mass_matrix.invm.shape != (d_pad, d_pad):
+            raise ValueError(
+                f"PreparedDenseMetric was built for d_pad "
+                f"{inv_mass_matrix.invm.shape[0]}; dim {dim} needs {d_pad}")
+        return inv_mass_matrix.invm
+    invm = jnp.asarray(inv_mass_matrix, jnp.float32)
+    if invm.ndim == 2:
+        pad = block_dim(dim) - dim
+        return jnp.pad(invm, ((0, pad), (0, pad)))
+    return invm[None, :]
+
+
+class _CallCache:
+    """pallas_call objects per (n_chains, dim, metric kind, variant)."""
+
+    def __init__(self, padded_vag_for, num_steps, friction_schedule,
+                 interpret):
+        self._vag_for = padded_vag_for
+        self._args = (num_steps, friction_schedule)
+        self._interpret = interpret
+        self._calls = {}
+
+    def __call__(self, n_chains, dim, dense, scaled, bridged):
+        key = (n_chains, dim, dense, scaled, bridged)
+        if key not in self._calls:
+            self._calls[key] = _build_call(
+                self._vag_for(dim), *self._args, n_chains, dim,
+                self._interpret, dense=dense, scaled=scaled,
+                bridged=bridged)
+        return self._calls[key]
+
+
+def _transition(calls, q, lp, grad, p0, u, step_size, gamma, steepness,
+                inv_mass_matrix, lp_scale=None, bridge=None):
+    """One kernel call on float32 operands. Returns the kernel's outputs
+    (q', lp', grad', accept (float), delta_h, proposal q, proposal lp)."""
+    n_chains, dim = q.shape
+    scaled = lp_scale is not None
+    bridged = bridge is not None
+    if scaled and bridged:
+        raise ValueError("lp_scale and bridge are mutually exclusive")
+    extra, rows = (), ()
+    if scaled:
+        extra = (lp_scale,)
+    if bridged:
+        extra, rows = _bridge_operands(bridge, dim)
+    call = calls(n_chains, dim, is_dense_metric(inv_mass_matrix), scaled,
+                 bridged)
+    f32 = jnp.float32
+    return call(_scalars(step_size, gamma, steepness, extra),
+                q.astype(f32), lp.astype(f32), grad.astype(f32),
+                p0.astype(f32), u.astype(f32),
+                _metric_operand(inv_mass_matrix, dim), *rows)
+
+
+def draw_momentum(key, shape, inv_mass_matrix):
+    """float32 p ~ N(0, M) for the kernel: z / sqrt(M^{-1}) for a diagonal
+    metric, z L^{-1} for a dense one (see prepare_dense_metric)."""
+    z = random.normal(key, shape, jnp.float32)
+    if not is_dense_metric(inv_mass_matrix):
+        return z / jnp.sqrt(jnp.asarray(inv_mass_matrix, jnp.float32))
+    if isinstance(inv_mass_matrix, PreparedDenseMetric):
+        _metric_operand(inv_mass_matrix, shape[1])      # validates its width
+    else:
+        inv_mass_matrix = prepare_dense_metric(inv_mass_matrix, shape[1])
+    return jnp.dot(z, inv_mass_matrix.l_inv,
+                   precision=lax.Precision.HIGHEST)
+
+
+def _vag_cache(value_and_grad_fn):
+    cache = {}
+
+    def padded_vag_for(dim):
+        if dim not in cache:
+            cache[dim] = make_padded_vag(value_and_grad_fn, block_dim(dim))
+        return cache[dim]
+    return padded_vag_for
 
 
 @memoize_on_target
@@ -508,34 +418,23 @@ def make_fused_grahmc_step(
     value_and_grad_fn,
     num_steps: int,
     friction_schedule: Optional[Callable],
-    chain_tile: Optional[int] = None,
-    interpret: Optional[bool] = None,
-    layout: str = "auto",
+    backend: str = "pallas",
 ):
     """Build a fused-step function with the grahmc_step calling convention:
 
         fused(key, state, step_size, gamma, steepness, inv_mass_matrix)
           -> (key, new_state, (accept, q_prop, lp_prop, delta_h))
 
-    Requires a target with analytic pallas_info metadata (mcmc_tpu.targets
-    factories). interpret=None auto-selects interpreter mode off-TPU so the
-    same code runs in CPU tests; layout='auto' picks the block layout with
-    the least padding waste for the target's dim.
+    Requires a target with analytic pallas_info metadata for one of
+    KERNEL_FAMILIES (mcmc_tpu.targets factories). The compiled kernel needs
+    a GPU (backend='pallas'); backend='interpret' runs the same kernel under
+    the Pallas interpreter (any platform, for tests).
     """
     if value_and_grad_fn is None:
         raise TypeError("the Pallas backend requires an analytic "
                         "value_and_grad_fn from mcmc_tpu.targets")
-    on_tpu = jax.default_backend() == "tpu"
-    if interpret is None:
-        interpret = not on_tpu
-    # The TPU interpreter stubs prng_random_bits with zeros, so off-TPU the
-    # kernel runs with host-generated (threefry) randomness injected instead
-    # of on-chip RNG. Same kernel body, same physics.
-    onchip_rng = on_tpu and not interpret
-
-    call_cache = {}
-
-    vag_cache = {}
+    calls = _CallCache(_vag_cache(value_and_grad_fn), num_steps,
+                       friction_schedule, _interpret(backend))
 
     def fused(key, state, step_size, gamma, steepness, inv_mass_matrix,
               lp_scale=None, bridge=None):
@@ -552,458 +451,51 @@ def make_fused_grahmc_step(
         chain state's log_prob/grad_log_prob must already be the
         MIXTURE values at the current beta."""
         n_chains, dim = state.position.shape
-        dense = is_dense_metric(inv_mass_matrix)
-        dim_axis = choose_layout(dim) if layout == "auto" else (
-            1 if layout == "lanes" else 0)
-        d_pad = _round_up(dim, LANE if dim_axis == 1 else SUBLANE)
-        vag_key = (dim, d_pad, dim_axis)
-        if vag_key not in vag_cache:
-            vag_cache[vag_key] = make_padded_vag(value_and_grad_fn, d_pad,
-                                                 dim_axis)
-        padded_vag = vag_cache[vag_key]
-        has_data = bool(getattr(padded_vag, "data_arrays", ()))
-        # default tiles: 512 chains on sublanes (lane layout) or 1024 chains
-        # on lanes (transposed; measured optimum on v5e — 80.7M vs 73.2M
-        # chain-steps/s at 2048 on the 50D funnel); data-carrying targets
-        # halve again — their (n_data, tile) likelihood intermediates must
-        # also fit the 16MB scoped VMEM. Shrink to divide n_chains.
-        tile = chain_tile or (
-            (256 if dim_axis == 1 else 1024) if has_data
-            else (512 if dim_axis == 1 else 1024))
-        tile = min(tile, n_chains)
-        while n_chains % tile:
-            tile //= 2
-        tile = max(tile, 1)
-
-        scaled = lp_scale is not None
-        bridged = bridge is not None
-        if scaled and bridged:
-            raise ValueError("lp_scale and bridge are mutually exclusive")
-        cache_key = (n_chains, dim, tile, dim_axis, dense, scaled, bridged)
-        if cache_key not in call_cache:
-            call_cache[cache_key] = _build_call(
-                padded_vag, num_steps, friction_schedule, n_chains, d_pad,
-                tile, inject_randoms=not onchip_rng, interpret=interpret,
-                dim_axis=dim_axis, dense=dense, scaled=scaled,
-                bridged=bridged)
-        call = call_cache[cache_key]
-        data_arrays = tuple(getattr(padded_vag, "data_arrays", ()))
-
         key, seed_key = random.split(key)
-        seed = seed_words_from_key(seed_key)
-        scalar_list = [
-            jnp.asarray(step_size, jnp.float32),
-            jnp.asarray(gamma, jnp.float32),
-            jnp.asarray(steepness, jnp.float32),
-        ]
-        if scaled:
-            scalar_list.append(jnp.asarray(lp_scale, jnp.float32))
-        if bridged:
-            beta, base_mean, base_scale = bridge
-            bmean = jnp.broadcast_to(
-                jnp.asarray(base_mean, jnp.float32), (dim,))
-            bscale = jnp.broadcast_to(
-                jnp.asarray(base_scale, jnp.float32), (dim,))
-            base_log_norm = (-jnp.sum(jnp.log(bscale))
-                             - 0.5 * dim * math.log(TWO_PI))
-            scalar_list += [jnp.asarray(beta, jnp.float32),
-                            base_log_norm.astype(jnp.float32)]
-        scalars = jnp.stack(scalar_list)
+        k_mom, k_u = random.split(seed_key)
+        p0 = draw_momentum(k_mom, (n_chains, dim), inv_mass_matrix)
+        u = precision.accept_uniform(k_u, (n_chains,), jnp.float32)
+        q1, lp1, grad1, acc, dh, prop_q, prop_lp = _transition(
+            calls, state.position, state.log_prob, state.grad_log_prob, p0,
+            u, step_size, gamma, steepness, inv_mass_matrix,
+            lp_scale=lp_scale, bridge=bridge)
 
-        pad = d_pad - dim
-        q = jnp.pad(state.position.astype(jnp.float32), ((0, 0), (0, pad)))
-        grad = jnp.pad(state.grad_log_prob.astype(jnp.float32),
-                       ((0, 0), (0, pad)))
-        lp = state.log_prob.astype(jnp.float32)[:, None]
-        if dense:
-            invm, unwhiten = _resolve_dense_metric(inv_mass_matrix, dim,
-                                                   d_pad, dim_axis)
-        else:
-            invm = jnp.pad(jnp.asarray(inv_mass_matrix, jnp.float32),
-                           (0, pad), constant_values=1.0)[None, :]
-        mask = _mask_row(dim, d_pad, dim_axis=1)
-        bridge_rows = ()
-        if bridged:
-            # padding entries ZERO for both rows: padded q coordinates then
-            # contribute nothing to the base term or its gradient
-            bridge_rows = (
-                jnp.pad(bmean, (0, pad))[None, :],
-                jnp.pad(1.0 / bscale, (0, pad))[None, :],
-            )
-        if dim_axis == 0:
-            q, grad, lp = q.T, grad.T, lp.T
-            mask = mask.T
-            bridge_rows = tuple(r.T for r in bridge_rows)
-            if not dense:
-                invm = invm.T
-
-        extra = (unwhiten,) if dense and onchip_rng else ()
-        if onchip_rng:
-            outs = call(seed, scalars, q, lp, grad, invm, mask, *bridge_rows,
-                        *extra, *data_arrays)
-        else:
-            k_mom, k_u = random.split(seed_key)
-            z = random.normal(k_mom, q.shape, dtype=jnp.float32)
-            if dense:
-                p0 = unwhiten_op(unwhiten, dim_axis)(z)
-            else:
-                p0 = z / jnp.sqrt(invm)
-            u_shape = lp.shape
-            u = random.uniform(k_u, u_shape, dtype=jnp.float32)
-            outs = call(seed, scalars, q, lp, grad, invm, mask, *bridge_rows,
-                        *data_arrays, p0, u)
-        q1, lp1, grad1, acc, dh, prop_q, prop_lp = outs
-        if dim_axis == 0:
-            q1, lp1, grad1, acc, dh = q1.T, lp1.T, grad1.T, acc.T, dh.T
-            prop_q, prop_lp = prop_q.T, prop_lp.T
-
-        accept = acc[:, 0] > 0.5
-        dh_flat = dh[:, 0]
-        divergent = jnp.abs(dh_flat) > DIVERGENCE_DELTA_H
-
+        accept = acc > 0.5
+        divergent = jnp.abs(dh) > DIVERGENCE_DELTA_H
         pos_dtype = state.position.dtype
         e_dtype = state.log_prob.dtype
         new_state = state._replace(
-            position=q1[:, :dim].astype(pos_dtype),
-            log_prob=lp1[:, 0].astype(e_dtype),
-            grad_log_prob=grad1[:, :dim].astype(pos_dtype),
+            position=q1.astype(pos_dtype),
+            log_prob=lp1.astype(e_dtype),
+            grad_log_prob=grad1.astype(pos_dtype),
             accept_count=state.accept_count + accept.astype(jnp.int32),
             divergence_count=state.divergence_count + divergent.astype(jnp.int32),
         )
         # Proposal extras exactly mirror grahmc_step: the true trajectory
         # endpoint and its log-prob, regardless of the accept decision.
-        return key, new_state, (accept,
-                                prop_q[:, :dim].astype(pos_dtype),
-                                prop_lp[:, 0].astype(e_dtype),
-                                dh_flat.astype(e_dtype))
+        return key, new_state, (accept, prop_q.astype(pos_dtype),
+                                prop_lp.astype(e_dtype), dh.astype(e_dtype))
 
     return fused
 
 
-def _make_multistep_kernel(padded_vag: Callable, num_steps: int,
-                           friction_schedule: Optional[Callable],
-                           transitions: int, inject_randoms: bool,
-                           dense: bool = False):
-    """T full MH transitions per kernel call, transposed layout only.
-
-    Chain state (q, lp, grad) stays in VMEM across all T transitions — HBM
-    sees it once per call instead of once per transition, and the XLA glue
-    (kernel launch, scan plumbing) amortizes T-fold. Per-transition outputs:
-    accept/delta_H rows and the post-transition position/log-prob history
-    (the same per-step collection the single-step harness produces).
-
-    Ref order: seed(SMEM), scalars(SMEM), q, lp, grad, inv_mass, mask
-    [, unwhiten if dense on-chip RNG][, data...]
-    [, p0_all (T,d_pad,C), u_all (T,C) if inject_randoms]
-    -> q, lp, grad (aliased), acc (T,C), dh (T,C), hist_q (T,d_pad,C),
-       hist_lp (T,C).
-    """
-    n_data_refs = len(getattr(padded_vag, "data_arrays", ()))
-    has_unwhiten = dense and not inject_randoms
-
-    def kernel(seed_ref, scal_ref, q_ref, lp_ref, grad_ref, invm_ref,
-               mask_ref, *rest):
-        if has_unwhiten:
-            unwhiten_ref, rest = rest[0], rest[1:]
-        data_vals = tuple(r[:] for r in rest[:n_data_refs])
-        rest = rest[n_data_refs:]
-        if data_vals:
-            base_vag = padded_vag
-
-            def vag(qq):
-                return base_vag(qq, *data_vals)
-        else:
-            vag = padded_vag
-        if inject_randoms:
-            (p0_ref, u_ref, q_out, lp_out, grad_out, acc_out, dh_out,
-             hist_q_out, hist_lp_out) = rest
-        else:
-            (q_out, lp_out, grad_out, acc_out, dh_out,
-             hist_q_out, hist_lp_out) = rest
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0) * 7919,
-                            seed_ref[1])
-
-        eps = scal_ref[0]
-        gamma_max = scal_ref[1]
-        steepness = scal_ref[2]
-        invm = invm_ref[:]
-        mask = mask_ref[:]
-        vel, kin = _metric_ops(invm, dense, ax=0)
-        if not dense:
-            inv_sqrt_m = 1.0 / jnp.sqrt(invm)
-        elif has_unwhiten:
-            unwhiten = unwhiten_ref[:]
-
-        def transition(t, carry):
-            q0, lp0, grad0 = carry
-            if inject_randoms:
-                p0 = jnp.reshape(p0_ref[pl.ds(t, 1), :, :], q0.shape) * mask
-                u = u_ref[pl.ds(t, 1), :]
-            else:
-                z = _gaussian(q0.shape)
-                p0 = (unwhiten_op(unwhiten, 0)(z)
-                      if dense else z * inv_sqrt_m) * mask
-                u = _bits_to_uniform(pltpu.prng_random_bits(lp0.shape))
-
-            h0 = -lp0 + kin(p0)
-            q1, p1, lp1, grad1 = _integrate(
-                q0, p0, lp0, grad0, vag, eps, num_steps,
-                friction_schedule, gamma_max, steepness, vel)
-            p1 = -p1
-            h1 = -lp1 + kin(p1)
-            h1 = jnp.where(jnp.isfinite(h1), h1, ENERGY_OVERFLOW)
-            accept = jnp.log(u) < jnp.minimum(0.0, h0 - h1)
-
-            q0 = jnp.where(accept, q1, q0)
-            lp0 = jnp.where(accept, lp1, lp0)
-            grad0 = jnp.where(accept, grad1, grad0)
-            acc_out[pl.ds(t, 1), :] = accept.astype(jnp.float32)
-            dh_out[pl.ds(t, 1), :] = h1 - h0
-            hist_q_out[pl.ds(t, 1), :, :] = q0[None]
-            hist_lp_out[pl.ds(t, 1), :] = lp0
-            return (q0, lp0, grad0)
-
-        q, lp, grad = lax.fori_loop(
-            0, transitions, transition, (q_ref[:], lp_ref[:], grad_ref[:]))
-        q_out[:] = q
-        lp_out[:] = lp
-        grad_out[:] = grad
-
-    return kernel
-
-
-@memoize_on_target
-def make_fused_grahmc_multistep(
-    log_prob_fn,
-    value_and_grad_fn,
-    num_steps: int,
-    friction_schedule: Optional[Callable],
-    transitions: int,
-    chain_tile: Optional[int] = None,
-    interpret: Optional[bool] = None,
-):
-    """Build multi(key, state, step_size, gamma, steepness, inv_mass) ->
-    (key, new_state, (accept (T,C), delta_h (T,C), hist_q (T,C,dim),
-    hist_lp (T,C))) running T transitions per kernel call.
-
-    Transposed layout only (chains on lanes) — the right layout for every
-    small-dim target; callers fall back to the single-step kernel otherwise.
-    """
-    if value_and_grad_fn is None:
-        raise TypeError("the Pallas backend requires an analytic "
-                        "value_and_grad_fn from mcmc_tpu.targets")
-    on_tpu = jax.default_backend() == "tpu"
-    if interpret is None:
-        interpret = not on_tpu
-    onchip_rng = on_tpu and not interpret
-    call_cache = {}
-    vag_cache = {}
-
-    def multi(key, state, step_size, gamma, steepness, inv_mass_matrix):
-        n_chains, dim = state.position.shape
-        dense = is_dense_metric(inv_mass_matrix)
-        d_pad = _round_up(dim, SUBLANE)
-        if dim not in vag_cache:
-            vag_cache[dim] = make_padded_vag(value_and_grad_fn, d_pad,
-                                             dim_axis=0)
-        padded_vag = vag_cache[dim]
-        has_data = bool(getattr(padded_vag, "data_arrays", ()))
-        tile = select_chain_tile(n_chains, d_pad, transitions, chain_tile,
-                                 has_data)
-
-        cache_key = (n_chains, dim, tile, dense)
-        if cache_key not in call_cache:
-            kernel = _make_multistep_kernel(
-                padded_vag, num_steps, friction_schedule, transitions,
-                inject_randoms=not onchip_rng, dense=dense)
-            grid = (n_chains // tile,)
-            full = pl.BlockSpec((d_pad, tile), lambda i: (0, i),
-                                memory_space=pltpu.VMEM)
-            row = pl.BlockSpec((1, tile), lambda i: (0, i),
-                               memory_space=pltpu.VMEM)
-            trow = pl.BlockSpec((transitions, tile), lambda i: (0, i),
-                                memory_space=pltpu.VMEM)
-            thist = pl.BlockSpec((transitions, d_pad, tile),
-                                 lambda i: (0, 0, i),
-                                 memory_space=pltpu.VMEM)
-            bcast = pl.BlockSpec((d_pad, 1), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM)
-            matrix_spec = pl.BlockSpec((d_pad, d_pad), lambda i: (0, 0),
-                                       memory_space=pltpu.VMEM)
-            in_specs = [pl.BlockSpec(memory_space=pltpu.SMEM),
-                        pl.BlockSpec(memory_space=pltpu.SMEM),
-                        full, row, full,
-                        matrix_spec if dense else bcast, bcast]
-            if dense and onchip_rng:
-                in_specs.append(matrix_spec)      # unwhiten (L^{-T} here)
-            for arr in getattr(padded_vag, "data_arrays", ()):
-                in_specs.append(pl.BlockSpec(
-                    arr.shape,
-                    lambda i, _rank=len(arr.shape): (0,) * _rank,
-                    memory_space=pltpu.VMEM))
-            if not onchip_rng:
-                in_specs += [
-                    pl.BlockSpec((transitions, d_pad, tile),
-                                 lambda i: (0, 0, i),
-                                 memory_space=pltpu.VMEM),
-                    trow,
-                ]
-            out_shape = [
-                jax.ShapeDtypeStruct((d_pad, n_chains), jnp.float32),
-                jax.ShapeDtypeStruct((1, n_chains), jnp.float32),
-                jax.ShapeDtypeStruct((d_pad, n_chains), jnp.float32),
-                jax.ShapeDtypeStruct((transitions, n_chains), jnp.float32),
-                jax.ShapeDtypeStruct((transitions, n_chains), jnp.float32),
-                jax.ShapeDtypeStruct((transitions, d_pad, n_chains),
-                                     jnp.float32),
-                jax.ShapeDtypeStruct((transitions, n_chains), jnp.float32),
-            ]
-            out_specs = [full, row, full, trow, trow, thist, trow]
-            call_cache[cache_key] = pl.pallas_call(
-                kernel, grid=grid, in_specs=in_specs, out_specs=out_specs,
-                out_shape=out_shape,
-                input_output_aliases={2: 0, 3: 1, 4: 2},
-                interpret=interpret)
-        call = call_cache[cache_key]
-        data_arrays = tuple(getattr(padded_vag, "data_arrays", ()))
-
-        key, seed_key = random.split(key)
-        seed = seed_words_from_key(seed_key)
-        scalars = jnp.stack([
-            jnp.asarray(step_size, jnp.float32),
-            jnp.asarray(gamma, jnp.float32),
-            jnp.asarray(steepness, jnp.float32),
-        ])
-        pad = d_pad - dim
-        q = jnp.pad(state.position.astype(jnp.float32),
-                    ((0, 0), (0, pad))).T
-        grad = jnp.pad(state.grad_log_prob.astype(jnp.float32),
-                       ((0, 0), (0, pad))).T
-        lp = state.log_prob.astype(jnp.float32)[None, :]
-        if dense:
-            invm, unwhiten = _resolve_dense_metric(inv_mass_matrix, dim,
-                                                   d_pad, dim_axis=0)
-        else:
-            invm = jnp.pad(jnp.asarray(inv_mass_matrix, jnp.float32),
-                           (0, pad), constant_values=1.0)[:, None]
-        mask = _mask_row(dim, d_pad, dim_axis=0)
-
-        extra = (unwhiten,) if dense and onchip_rng else ()
-        args = (seed, scalars, q, lp, grad, invm, mask) + extra + data_arrays
-        if not onchip_rng:
-            k_mom, k_u = random.split(seed_key)
-            z = random.normal(k_mom, (transitions, d_pad, n_chains),
-                              jnp.float32)
-            if dense:
-                # per-transition unwhitening: p_t = L^{-T} z_t
-                p0 = jax.vmap(unwhiten_op(unwhiten, 0))(z)
-            else:
-                p0 = z / jnp.sqrt(invm)
-            u = random.uniform(k_u, (transitions, n_chains), jnp.float32)
-            args = args + (p0, u)
-        (q1, lp1, grad1, acc, dh, hist_q, hist_lp) = call(*args)
-
-        pos_dtype = state.position.dtype
-        e_dtype = state.log_prob.dtype
-        accept = acc > 0.5                               # (T, C)
-        divergent = jnp.abs(dh) > DIVERGENCE_DELTA_H
-        new_state = state._replace(
-            position=q1.T[:, :dim].astype(pos_dtype),
-            log_prob=lp1[0].astype(e_dtype),
-            grad_log_prob=grad1.T[:, :dim].astype(pos_dtype),
-            accept_count=state.accept_count
-            + jnp.sum(accept, axis=0).astype(jnp.int32),
-            divergence_count=state.divergence_count
-            + jnp.sum(divergent, axis=0).astype(jnp.int32),
-        )
-        extras = (accept,
-                  jnp.transpose(hist_q, (0, 2, 1))[:, :, :dim].astype(
-                      pos_dtype),
-                  hist_lp.astype(e_dtype),
-                  dh.astype(e_dtype))
-        return key, new_state, extras
-
-    return multi
-
-
 def make_debug_trajectory(value_and_grad_fn, num_steps: int,
                           friction_schedule: Optional[Callable],
-                          n_chains: int, dim: int,
-                          interpret: Optional[bool] = None,
-                          layout: str = "lanes"):
-    """Deterministic fused transition with injectable momentum/uniforms.
+                          backend: str = "pallas"):
+    """The fused transition with injected momentum and uniforms.
 
-    Returns run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass)
-    -> (q', lp', grad', accept, delta_h) for bit-level comparison against the
-    XLA trajectory in tests. layout selects the block layout under test.
+    Returns run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass,
+    bridge=None, lp_scale=None) -> (q', lp', grad', accept, delta_h) for
+    comparison against the XLA trajectory on the same randomness.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    dim_axis = 1 if layout == "lanes" else 0
-    d_pad = _round_up(dim, LANE if dim_axis == 1 else SUBLANE)
-    tile = n_chains
-    padded_vag = make_padded_vag(value_and_grad_fn, d_pad, dim_axis)
-    data_arrays = tuple(getattr(padded_vag, "data_arrays", ()))
-    call_cache = {}
-
-    def _call(dense, bridged=False):
-        k = (dense, bridged)
-        if k not in call_cache:
-            call_cache[k] = _build_call(
-                padded_vag, num_steps, friction_schedule, n_chains, d_pad,
-                tile, inject_randoms=True, interpret=interpret,
-                dim_axis=dim_axis, dense=dense, bridged=bridged)
-        return call_cache[k]
+    calls = _CallCache(_vag_cache(value_and_grad_fn), num_steps,
+                       friction_schedule, _interpret(backend))
 
     def run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass,
-            bridge=None):
-        """bridge: optional (beta, base_mean, base_scale) — integrate the
-        SMC geometric-bridge mixture instead of the bare target (same
-        contract as make_fused_grahmc_step's fused(..., bridge=...))."""
-        pad = d_pad - dim
-        dense = jnp.ndim(inv_mass) == 2
-        scalar_list = [jnp.asarray(step_size, jnp.float32),
-                       jnp.asarray(gamma, jnp.float32),
-                       jnp.asarray(steepness, jnp.float32)]
-        bridge_rows = ()
-        if bridge is not None:
-            beta, base_mean, base_scale = bridge
-            bmean = jnp.broadcast_to(
-                jnp.asarray(base_mean, jnp.float32), (dim,))
-            bscale = jnp.broadcast_to(
-                jnp.asarray(base_scale, jnp.float32), (dim,))
-            scalar_list += [
-                jnp.asarray(beta, jnp.float32),
-                (-jnp.sum(jnp.log(bscale))
-                 - 0.5 * dim * math.log(TWO_PI)).astype(jnp.float32)]
-            bridge_rows = (jnp.pad(bmean, (0, pad))[None, :],
-                           jnp.pad(1.0 / bscale, (0, pad))[None, :])
-        scalars = jnp.stack(scalar_list)
-        seed = jnp.zeros((2,), jnp.int32)
-        qp = jnp.pad(q.astype(jnp.float32), ((0, 0), (0, pad)))
-        gp = jnp.pad(grad.astype(jnp.float32), ((0, 0), (0, pad)))
-        pp = jnp.pad(p0.astype(jnp.float32), ((0, 0), (0, pad)))
-        lpp = lp.astype(jnp.float32)[:, None]
-        up = u.astype(jnp.float32)[:, None]
-        if dense:
-            invm = _pad_dense_block(inv_mass, dim, d_pad)
-        else:
-            invm = jnp.pad(jnp.asarray(inv_mass, jnp.float32), (0, pad),
-                           constant_values=1.0)[None, :]
-        mask = _mask_row(dim, d_pad, dim_axis=1)
-        if dim_axis == 0:
-            qp, gp, pp, lpp, up = qp.T, gp.T, pp.T, lpp.T, up.T
-            mask = mask.T
-            bridge_rows = tuple(r.T for r in bridge_rows)
-            if not dense:
-                invm = invm.T
-        call = _call(dense, bridge is not None)
-        outs = call(seed, scalars, qp, lpp, gp, invm, mask, *bridge_rows,
-                    *data_arrays, pp, up)
-        q1, lp1, grad1, acc, dh, prop_q, prop_lp = outs
-        if dim_axis == 0:
-            q1, lp1, grad1, acc, dh = q1.T, lp1.T, grad1.T, acc.T, dh.T
-        return (q1[:, :dim], lp1[:, 0], grad1[:, :dim], acc[:, 0] > 0.5,
-                dh[:, 0])
+            bridge=None, lp_scale=None):
+        q1, lp1, grad1, acc, dh, _, _ = _transition(
+            calls, q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass,
+            lp_scale=lp_scale, bridge=bridge)
+        return q1, lp1, grad1, acc > 0.5, dh
 
     return run

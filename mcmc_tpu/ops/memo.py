@@ -1,9 +1,7 @@
 """Target-scoped memoization for fused-kernel factories.
 
-The fused Pallas kernel factories (`make_fused_grahmc_step`,
-`make_fused_grahmc_multistep`, `make_fused_rwmh_multistep`,
-`make_fused_nuts_window`) are keyed on a target's `value_and_grad_fn`
-closure — a fresh object per `get_target()` call.  A module-level
+The fused kernel factory (`make_fused_grahmc_step`) is keyed on a target's
+`value_and_grad_fn` closure — a fresh object per `get_target()` call.  A module-level
 ``functools.lru_cache`` therefore never hits across target instances but
 DOES hold strong references to up to ``maxsize`` dead targets' closures
 (datasets baked in), their compiled Pallas executables, and the

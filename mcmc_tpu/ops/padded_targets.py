@@ -1,29 +1,26 @@
-"""Padding-aware analytic value-and-grad for Pallas kernel blocks.
+"""Padding-aware analytic value-and-grad for the fused trajectory kernel.
 
-Pallas TPU blocks are padded to hardware tiles; the fused kernels keep padded
-entries of q at ZERO (momenta and gradients are zeroed there), so each target
-family only needs:
+The kernel works on (chain_tile, d_pad) blocks: chains on rows, the dim axis
+padded to a power of two (Triton's block rule). Padded entries of q are ZERO
+(the kernel's masked loads fill them so, and momenta and gradients are
+zeroed there), so each target family only needs:
 
 - reductions that ignore zero entries (sums of per-coordinate terms vanish),
 - dimension CONSTANTS taken from the true dim, not the padded extent,
 - explicit masking where zero inputs still produce nonzero gradients
-  (correlated Gaussian's b*sum(x) term, Rosenbrock's pair couplings,
-  log-gamma's positivity test).
+  (correlated Gaussian's b*sum(x) term, log-gamma's positivity test).
 
-Two block layouts, chosen by the kernel for VPU efficiency:
-
-- ``dim_axis=1`` (lane layout): blocks are (chains_tile, d_pad) with the dim
-  axis padded to 128 lanes. Best when dim is near a multiple of 128.
-- ``dim_axis=0`` (transposed layout): blocks are (d_pad, chains_tile) with the
-  dim axis padded only to the 8-sublane granule and CHAINS on the lanes. For
-  small dims (e.g. 50 -> pad 56 instead of 128) this cuts wasted VPU work
-  from ~60% to ~11%.
-
-Every builder is written axis-generically. Pallas kernels may not capture
-constant arrays, so masks / eigenvalue rows are rebuilt from broadcasted_iota
-inside the functions (scalars fold into the compiled kernel). Builders are
+Every builder is written from operations the Triton route lowers: elementwise
+math, iota, select and row reductions. A kernel cannot capture constant
+arrays and the route has no slicing, so masks and eigenvalue rows are rebuilt
+from iota and single coordinates are read by masked row sums. Builders are
 keyed by the ``pallas_info`` metadata the target factories attach to their
 value_and_grad closures.
+
+Families whose math does not lower this way (Rosenbrock's neighbour
+couplings need a shifted copy of the block; the hierarchical logistic needs
+its design matrix as a kernel operand) have no builder: the backend resolver
+sends them to the XLA integrator.
 """
 
 import math
@@ -32,112 +29,94 @@ from typing import Callable
 import numpy as np
 from scipy.special import gammaln
 
+import jax
 import jax.numpy as jnp
 from jax import lax
 
 LOG_2PI = math.log(2.0 * math.pi)
 
 
-def _ids(d_pad, dim_axis):
-    """Coordinate-index array broadcastable against a block: (1, d_pad) for
-    lane layout, (d_pad, 1) for transposed layout."""
-    shape = (1, d_pad) if dim_axis == 1 else (d_pad, 1)
-    return lax.broadcasted_iota(jnp.int32, shape, dim_axis)
+def _ids(d_pad):
+    """Coordinate-index row (1, d_pad), broadcastable against a block."""
+    return lax.broadcasted_iota(jnp.int32, (1, d_pad), 1)
 
 
-def _mask_row(dim, d_pad, dim_axis=1, dtype=jnp.float32):
-    """Mask: 1 for real coordinates, 0 for padding (broadcastable)."""
-    return (_ids(d_pad, dim_axis) < dim).astype(dtype)
+def _mask_row(dim, d_pad, dtype=jnp.float32):
+    """Mask row: 1 for real coordinates, 0 for padding."""
+    return (_ids(d_pad) < dim).astype(dtype)
 
 
-def _shift_up(q, dim_axis):
-    """q_{i+1} along the dim axis, zero-filled at the end."""
-    if dim_axis == 1:
-        return jnp.concatenate([q[:, 1:], jnp.zeros_like(q[:, :1])], axis=1)
-    return jnp.concatenate([q[1:, :], jnp.zeros_like(q[:1, :])], axis=0)
+def _coord(q, i, d_pad):
+    """i-th coordinate of every chain, keepdims: (C, 1)."""
+    return jnp.sum(jnp.where(_ids(d_pad) == i, q, 0.0), axis=1,
+                   keepdims=True)
 
 
-def _shift_down(x, dim_axis):
-    """x_{i-1} along the dim axis, zero-filled at the start."""
-    if dim_axis == 1:
-        return jnp.concatenate([jnp.zeros_like(x[:, :1]), x[:, :-1]], axis=1)
-    return jnp.concatenate([jnp.zeros_like(x[:1, :]), x[:-1, :]], axis=0)
-
-
-def _coord0(q, dim_axis):
-    """First coordinate, keepdims: (C,1) or (1,C)."""
-    return q[:, 0:1] if dim_axis == 1 else q[0:1, :]
-
-
-def make_padded_vag(value_and_grad_fn: Callable, d_pad: int,
-                    dim_axis: int = 1) -> Callable:
-    """Build block -> (lp, grad) for a tagged target.
-
-    Lane layout (dim_axis=1): q (C, d_pad) -> lp (C, 1), grad (C, d_pad).
-    Transposed (dim_axis=0): q (d_pad, C) -> lp (1, C), grad (d_pad, C).
+def make_padded_vag(value_and_grad_fn: Callable, d_pad: int) -> Callable:
+    """Build block -> (lp, grad) for a tagged target: q (C, d_pad) ->
+    lp (C, 1), grad (C, d_pad).
 
     Raises TypeError when the closure carries no pallas_info and KeyError for
-    families without a padded specialization (callers fall back to XLA).
+    families without a kernel specialization (see KERNEL_FAMILIES).
     """
     info = getattr(value_and_grad_fn, "pallas_info", None)
     if info is None:
         raise TypeError(
             "value_and_grad_fn has no pallas_info metadata; the Pallas "
             "backend needs a target built by mcmc_tpu.targets")
-    return _BUILDERS[info["family"]](info["dim"], d_pad, info["params"],
-                                     dim_axis)
+    return _BUILDERS[info["family"]](info["dim"], d_pad, info["params"])
 
 
-def _standard_normal(dim, d_pad, params, ax):
+def _standard_normal(dim, d_pad, params):
     const = dim * LOG_2PI
 
     def vag(q):
-        lp = -0.5 * (jnp.sum(q * q, axis=ax, keepdims=True) + const)
+        lp = -0.5 * (jnp.sum(q * q, axis=1, keepdims=True) + const)
         return lp, -q
     return vag
 
 
-def _ill_conditioned(dim, d_pad, params, ax):
+def _ill_conditioned(dim, d_pad, params):
     kappa = params["condition_number"]
     # linspace(1, kappa, dim)[i] = 1 + (kappa - 1) * i / (dim - 1)
     slope = (kappa - 1.0) / max(dim - 1, 1)
     const = float(np.sum(np.log(np.linspace(1.0, kappa, dim)))) + dim * LOG_2PI
 
     def vag(q):
-        ids = _ids(d_pad, ax)
+        ids = _ids(d_pad)
         eig = 1.0 + slope * ids.astype(jnp.float32)
         inv_eig = jnp.where(ids < dim, 1.0 / eig, 0.0)
         siv = q * inv_eig
-        lp = -0.5 * (jnp.sum(siv * q, axis=ax, keepdims=True) + const)
+        lp = -0.5 * (jnp.sum(siv * q, axis=1, keepdims=True) + const)
         return lp, -siv
     return vag
 
 
-def _correlated(dim, d_pad, params, ax):
+def _correlated(dim, d_pad, params):
     a = params["a"]
     b = params["b"]
     const = params["log_det_cov"] + dim * LOG_2PI
 
     def vag(q):
-        mask = _mask_row(dim, d_pad, ax)
-        s = jnp.sum(q, axis=ax, keepdims=True)      # zeros in padding: exact
+        mask = _mask_row(dim, d_pad)
+        s = jnp.sum(q, axis=1, keepdims=True)       # zeros in padding: exact
         siv = (a * q + b * s) * mask                # mask: b*s leaks into padding
-        lp = -0.5 * (jnp.sum(siv * q, axis=ax, keepdims=True) + const)
+        lp = -0.5 * (jnp.sum(siv * q, axis=1, keepdims=True) + const)
         return lp, -siv
     return vag
 
 
-def _neals_funnel(dim, d_pad, params, ax):
+def _neals_funnel(dim, d_pad, params):
     d_rest = dim - 1
     log_2pi9 = math.log(2.0 * math.pi * 9.0)
 
     def vag(q):
-        mask = _mask_row(dim, d_pad, ax)
-        coord0 = _ids(d_pad, ax) == 0
-        x0 = _coord0(q, ax)
+        mask = _mask_row(dim, d_pad)
+        coord0 = _ids(d_pad) == 0
+        x0 = _coord(q, 0, d_pad)
         inv_var = jnp.exp(-x0)
         rest = jnp.where(coord0, 0.0, q)             # zero the neck coordinate
-        sum_sq = jnp.sum(rest * rest, axis=ax, keepdims=True)
+        sum_sq = jnp.sum(rest * rest, axis=1, keepdims=True)
         lp = (-0.5 * (x0 * x0 / 9.0 + log_2pi9)
               - 0.5 * (sum_sq * inv_var + d_rest * x0 + d_rest * LOG_2PI))
         g0 = -x0 / 9.0 + 0.5 * inv_var * sum_sq - 0.5 * d_rest
@@ -146,23 +125,23 @@ def _neals_funnel(dim, d_pad, params, ax):
     return vag
 
 
-def _neals_funnel_noncentered(dim, d_pad, params, ax):
+def _neals_funnel_noncentered(dim, d_pad, params):
     """Non-centered funnel: diagonal Gaussian, var 9 on the neck coordinate
     and 1 elsewhere (the funnel curvature lives in the post-hoc transform,
     not the sampled density — targets/__init__.py neals_funnel_noncentered)."""
     const = math.log(9.0) + dim * LOG_2PI
 
     def vag(q):
-        mask = _mask_row(dim, d_pad, ax)
-        coord0 = _ids(d_pad, ax) == 0
+        mask = _mask_row(dim, d_pad)
+        coord0 = _ids(d_pad) == 0
         inv_var = jnp.where(coord0, 1.0 / 9.0, 1.0) * mask
         siv = q * inv_var
-        lp = -0.5 * (jnp.sum(siv * q, axis=ax, keepdims=True) + const)
+        lp = -0.5 * (jnp.sum(siv * q, axis=1, keepdims=True) + const)
         return lp, -siv
     return vag
 
 
-def _student_t(dim, d_pad, params, ax):
+def _student_t(dim, d_pad, params):
     df = params["df"]
     log_norm = float(gammaln((df + 1.0) / 2.0) - gammaln(df / 2.0)) \
         - 0.5 * math.log(df * math.pi)
@@ -170,32 +149,32 @@ def _student_t(dim, d_pad, params, ax):
 
     def vag(q):
         lp = const - ((df + 1.0) / 2.0) * jnp.sum(
-            jnp.log1p(q * q / df), axis=ax, keepdims=True)
+            jnp.log1p(q * q / df), axis=1, keepdims=True)
         grad = -(df + 1.0) * q / (df + q * q)
         return lp, grad
     return vag
 
 
-def _log_gamma(dim, d_pad, params, ax):
+def _log_gamma(dim, d_pad, params):
     shape, rate = params["shape"], params["rate"]
     eps = 1e-10
     log_norm = float(gammaln(shape)) + shape * math.log(rate)
 
     def vag(q):
-        mask = _mask_row(dim, d_pad, ax)
+        mask = _mask_row(dim, d_pad)
         pos = q > 0
         invalid = jnp.where(pos | (mask == 0), 0.0, 1.0)
-        valid = jnp.sum(invalid, axis=ax, keepdims=True) == 0
+        valid = jnp.sum(invalid, axis=1, keepdims=True) == 0
         qc = jnp.maximum(q, eps)
         terms = ((shape - 1.0) * jnp.log(qc) - rate * q - log_norm) * mask
-        lp = jnp.where(valid, jnp.sum(terms, axis=ax, keepdims=True), -math.inf)
+        lp = jnp.where(valid, jnp.sum(terms, axis=1, keepdims=True), -math.inf)
         g = ((shape - 1.0) * jnp.where(q > eps, 1.0 / qc, 0.0) - rate) * mask
         grad = jnp.where(valid, g, 0.0)
         return lp, grad
     return vag
 
 
-def _log_gamma_unconstrained(dim, d_pad, params, ax):
+def _log_gamma_unconstrained(dim, d_pad, params):
     """expGamma: the log-transformed reparameterization of log_gamma
     (targets/__init__.py unconstrain_target). lp = sum(shape*y - rate*e^y)
     - dim*logZ, grad = shape - rate*e^y — smooth on all of R^D, so the
@@ -206,37 +185,23 @@ def _log_gamma_unconstrained(dim, d_pad, params, ax):
     const = dim * (float(gammaln(shape)) + shape * math.log(rate))
 
     def vag(q):
-        mask = _mask_row(dim, d_pad, ax)
+        mask = _mask_row(dim, d_pad)
         ey = jnp.exp(q)
         lp = jnp.sum((shape * q - rate * ey) * mask,
-                     axis=ax, keepdims=True) - const
+                     axis=1, keepdims=True) - const
         grad = (shape - rate * ey) * mask
         return lp, grad
     return vag
 
 
-def _rosenbrock(dim, d_pad, params, ax):
-    a = 1.0 / (params["scale"] ** 2)
-
-    def vag(q):
-        pair_mask = (_ids(d_pad, ax) < dim - 1).astype(jnp.float32)
-        resid = (_shift_up(q, ax) - q * q) * pair_mask
-        term1 = (1.0 - q) ** 2 * pair_mask
-        U = jnp.sum(term1 + a * resid * resid, axis=ax, keepdims=True)
-        dU_fwd = (-2.0 * (1.0 - q) - 4.0 * a * q * resid) * pair_mask
-        dU_bwd = _shift_down(2.0 * a * resid, ax)     # contribution to x_{i+1}
-        return -U, -(dU_fwd + dU_bwd)
-    return vag
-
-
-def _gaussian_mixture(dim, d_pad, params, ax):
+def _gaussian_mixture(dim, d_pad, params):
     half_sep = params["separation"] / 2.0
     d_rest = dim - 1
 
     def vag(q):
-        mask = _mask_row(dim, d_pad, ax)
-        coord0 = _ids(d_pad, ax) == 0
-        x0 = _coord0(q, ax)
+        mask = _mask_row(dim, d_pad)
+        coord0 = _ids(d_pad) == 0
+        x0 = _coord(q, 0, d_pad)
         m1 = -0.5 * (x0 + half_sep) ** 2
         m2 = -0.5 * (x0 - half_sep) ** 2
         mx = jnp.maximum(m1, m2)
@@ -245,7 +210,7 @@ def _gaussian_mixture(dim, d_pad, params, ax):
         lse = e1 + e2
         log_p_x0 = math.log(0.5) + mx + jnp.log(lse) - 0.5 * LOG_2PI
         rest = jnp.where(coord0, 0.0, q)
-        lp = log_p_x0 - 0.5 * (jnp.sum(rest * rest, axis=ax, keepdims=True)
+        lp = log_p_x0 - 0.5 * (jnp.sum(rest * rest, axis=1, keepdims=True)
                                + d_rest * LOG_2PI)
         g0 = -((x0 + half_sep) * e1 + (x0 - half_sep) * e2) / lse
         grad = jnp.where(coord0, g0, -q) * mask
@@ -253,22 +218,17 @@ def _gaussian_mixture(dim, d_pad, params, ax):
     return vag
 
 
-def _coord(q, i, ax):
-    """i-th coordinate, keepdims: (C,1) or (1,C)."""
-    return q[:, i:i + 1] if ax == 1 else q[i:i + 1, :]
-
-
-def _multimodal_funnel_2d(dim, d_pad, params, ax):
+def _multimodal_funnel_2d(dim, d_pad, params):
     mu, sigma, c = params["mu"], params["sigma"], params["c"]
     sig2 = sigma * sigma
     log_norm_prior = math.log(0.5) - 0.5 * math.log(2.0 * math.pi * sig2)
     log_2pi_c = math.log(2.0 * math.pi * c)
 
     def vag(q):
-        coord0 = _ids(d_pad, ax) == 0
-        coord1 = _ids(d_pad, ax) == 1
-        v = _coord(q, 0, ax)
-        x = _coord(q, 1, ax)
+        coord0 = _ids(d_pad) == 0
+        coord1 = _ids(d_pad) == 1
+        v = _coord(q, 0, d_pad)
+        x = _coord(q, 1, d_pad)
         a1 = -0.5 * (v - mu) ** 2 / sig2
         a2 = -0.5 * (v + mu) ** 2 / sig2
         mx = jnp.maximum(a1, a2)
@@ -289,9 +249,8 @@ def _multimodal_funnel_2d(dim, d_pad, params, ax):
     return vag
 
 
-def _l1_shell_terms(u, radii, sig2):
-    """Unrolled logsumexp over scalar radii: returns (lp, dlp_du)."""
-    terms = [-0.5 * (u - r) ** 2 / sig2 for r in radii]
+def _logsumexp_terms(terms):
+    """Unrolled logsumexp over a list of (C, 1) terms: (max, exps, lse)."""
     mx = terms[0]
     for t in terms[1:]:
         mx = jnp.maximum(mx, t)
@@ -299,27 +258,27 @@ def _l1_shell_terms(u, radii, sig2):
     lse = exps[0]
     for e in exps[1:]:
         lse = lse + e
-    lp = mx + jnp.log(lse)
-    du = exps[0] * (-(u - radii[0]) / sig2)
-    for e, r in zip(exps[1:], radii[1:]):
-        du = du + e * (-(u - r) / sig2)
-    return lp, du / lse
+    return mx, exps, lse
 
 
-def _concentric_l1(dim, d_pad, params, ax):
+def _concentric_l1(dim, d_pad, params):
     radii = params["radii"]
     sig2 = params["sigma"] ** 2
 
     def vag(q):
-        mask = _mask_row(dim, d_pad, ax)
-        u = jnp.sum(jnp.abs(q) * mask, axis=ax, keepdims=True)
-        lp, du = _l1_shell_terms(u, radii, sig2)
-        grad = du * jnp.sign(q) * mask
-        return lp, grad
+        mask = _mask_row(dim, d_pad)
+        u = jnp.sum(jnp.abs(q) * mask, axis=1, keepdims=True)
+        mx, exps, lse = _logsumexp_terms(
+            [-0.5 * (u - r) ** 2 / sig2 for r in radii])
+        du = exps[0] * (-(u - radii[0]) / sig2)
+        for e, r in zip(exps[1:], radii[1:]):
+            du = du + e * (-(u - r) / sig2)
+        grad = du / lse * jnp.sign(q) * mask
+        return mx + jnp.log(lse), grad
     return vag
 
 
-def _nested_l1(dim, d_pad, params, ax):
+def _nested_l1(dim, d_pad, params):
     r_outer, r_inner = params["r_outer"], params["r_inner"]
     mu_norm, n_inner = params["mu_norm"], params["n_inner"]
     sig2 = params["sigma"] ** 2
@@ -330,8 +289,8 @@ def _nested_l1(dim, d_pad, params, ax):
         centres.append(((j // 2) % dim, 1.0 if j % 2 == 0 else -1.0, r_inner))
 
     def vag(q):
-        mask = _mask_row(dim, d_pad, ax)
-        ids = _ids(d_pad, ax)
+        mask = _mask_row(dim, d_pad)
+        ids = _ids(d_pad)
         diffs, us = [], []
         for axis, sign, _r in centres:
             if axis is None:
@@ -340,96 +299,14 @@ def _nested_l1(dim, d_pad, params, ax):
                 d = q - jnp.where(ids == axis, sign * mu_norm, 0.0)
             d = d * mask
             diffs.append(d)
-            us.append(jnp.sum(jnp.abs(d), axis=ax, keepdims=True))
-        terms = [-0.5 * (u - c[2]) ** 2 / sig2 for u, c in zip(us, centres)]
-        mx = terms[0]
-        for t in terms[1:]:
-            mx = jnp.maximum(mx, t)
-        exps = [jnp.exp(t - mx) for t in terms]
-        lse = exps[0]
-        for e in exps[1:]:
-            lse = lse + e
-        lp = mx + jnp.log(lse)
+            us.append(jnp.sum(jnp.abs(d), axis=1, keepdims=True))
+        mx, exps, lse = _logsumexp_terms(
+            [-0.5 * (u - c[2]) ** 2 / sig2 for u, c in zip(us, centres)])
         grad = jnp.zeros_like(q)
         for e, u, c, d in zip(exps, us, centres, diffs):
             grad = grad + (e * (-(u - c[2]) / sig2)) * jnp.sign(d)
         grad = grad / lse * mask
-        return lp, grad
-    return vag
-
-
-def _hierarchical_logistic(dim, d_pad, params, ax):
-    """Logistic-regression posterior with the design matrix resident in VMEM.
-
-    q layout: coordinate 0 = tau (log coefficient scale), 1..p = beta.
-    The builder exposes `data_arrays` — the padded design matrix (with a zero
-    tau column, so beta picks out rows/cols 1..p for free) and the labels —
-    which the fused kernel receives as whole-array VMEM refs. Both likelihood
-    matmuls then run on the MXU with the (C, n_data) logits never leaving
-    VMEM; the XLA path is HBM-bound on exactly those intermediates (measured
-    9.7 matmul-TFLOP/s at 8192 chains, ~570 GB/s intermediate traffic).
-    """
-    p = dim - 1
-    X_np = params["X"]                      # (n_data, p) float32
-    y_np = params["y"]                      # (n_data,) float32
-    n_data = X_np.shape[0]
-    # zero tau column + zero padding columns: (n_data, d_pad)
-    X_pad = np.zeros((n_data, d_pad), np.float32)
-    X_pad[:, 1:1 + p] = X_np
-    # NUMPY on purpose: these are cached on the vag closure across jit traces
-    # (fused_trajectory's call cache); jnp constants created inside one trace
-    # would leak into the next.
-    y_row = np.asarray(y_np, np.float32)
-    if ax == 1:
-        data_arrays = (X_pad, y_row[None, :])
-    else:
-        data_arrays = (np.ascontiguousarray(X_pad.T), y_row[:, None])
-
-    def vag(q, Xd, yd):
-        mask = _mask_row(dim, d_pad, ax)
-        coord0 = _ids(d_pad, ax) == 0
-        tau = _coord0(q, ax)
-        not_tau = (~coord0).astype(jnp.float32) * mask
-
-        if ax == 1:
-            # q (C, d_pad), Xd (n_data, d_pad), yd (1, n_data)
-            z = lax.dot_general(
-                q, Xd, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)       # (C, n_data)
-            # one exp serves both sigmoid and softplus: e = exp(-|z|)
-            e = jnp.exp(-jnp.abs(z))
-            denom = 1.0 + e
-            sig = jnp.where(z >= 0, 1.0 / denom, e / denom)
-            log_lik = jnp.sum(yd * z - (jnp.maximum(z, 0.0) + jnp.log1p(e)),
-                              axis=1, keepdims=True)
-            resid = yd - sig                              # (C, n_data)
-            g_lik = lax.dot_general(
-                resid, Xd, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)       # (C, d_pad)
-        else:
-            # q (d_pad, C), Xd (d_pad, n_data), yd (n_data, 1)
-            z = lax.dot_general(
-                Xd, q, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)       # (n_data, C)
-            e = jnp.exp(-jnp.abs(z))
-            denom = 1.0 + e
-            sig = jnp.where(z >= 0, 1.0 / denom, e / denom)
-            log_lik = jnp.sum(yd * z - (jnp.maximum(z, 0.0) + jnp.log1p(e)),
-                              axis=0, keepdims=True)
-            resid = yd - sig                              # (n_data, C)
-            g_lik = lax.dot_general(
-                Xd, resid, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)       # (d_pad, C)
-
-        inv_scale = jnp.exp(-tau)
-        beta_sq = jnp.sum(q * q * not_tau, axis=ax, keepdims=True)
-        lp = (log_lik - 0.5 * inv_scale * beta_sq - 0.5 * p * tau
-              - 0.5 * tau * tau)
-        g_tau = 0.5 * inv_scale * beta_sq - 0.5 * p - tau
-        grad = jnp.where(coord0, g_tau, g_lik - q * inv_scale) * mask
-        return lp, grad
-
-    vag.data_arrays = data_arrays
+        return mx + jnp.log(lse), grad
     return vag
 
 
@@ -442,25 +319,39 @@ _BUILDERS = {
     "student_t": _student_t,
     "log_gamma": _log_gamma,
     "log_gamma_unconstrained": _log_gamma_unconstrained,
-    "rosenbrock": _rosenbrock,
     "gaussian_mixture": _gaussian_mixture,
     "multimodal_funnel_2d": _multimodal_funnel_2d,
     "concentric_l1_balls": _concentric_l1,
     "nested_l1_balls": _nested_l1,
-    "hierarchical_logistic": _hierarchical_logistic,
 }
 
-PALLAS_FAMILIES = tuple(_BUILDERS)
+KERNEL_FAMILIES = tuple(_BUILDERS)
+BACKENDS = ("auto", "xla", "pallas", "interpret")
 
 
-def auto_pallas_backend(value_and_grad_fn) -> bool:
-    """True when the current backend is TPU and the target's analytic
-    value-and-grad carries pallas_info for a family with a fused-kernel
-    specialization — the shared predicate behind every backend='auto'
-    resolution (runner, windowed warmup, ChEES warmup/sampling)."""
-    import jax
-
-    if jax.default_backend() != "tpu":
-        return False
+def kernel_family(value_and_grad_fn):
+    """The target's family when the fused kernel has its math, else None."""
     info = getattr(value_and_grad_fn, "pallas_info", None)
-    return info is not None and info["family"] in PALLAS_FAMILIES
+    if info is None or info["family"] not in KERNEL_FAMILIES:
+        return None
+    return info["family"]
+
+
+def resolve_backend(backend: str, value_and_grad_fn,
+                    platform: str = None) -> str:
+    """The one backend predicate. Explicit choices pass through: 'xla' (the
+    scan integrator), 'pallas' (the compiled kernel, GPU only) and
+    'interpret' (the same kernel under the Pallas interpreter, any
+    platform). 'auto' is 'pallas' only on a GPU (the kernel is compiled
+    through Triton) and only for a target whose family has kernel math
+    (KERNEL_FAMILIES); everything else runs the XLA integrator.
+    ``platform`` defaults to jax.default_backend()."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    if backend != "auto":
+        return backend
+    platform = platform or jax.default_backend()
+    if platform == "gpu" and kernel_family(value_and_grad_fn) is not None:
+        return "pallas"
+    return "xla"

@@ -2,15 +2,15 @@
 
 MCMC chains are embarrassingly parallel: zero communication in the sampling
 hot loop, cross-chain reductions only in diagnostics (SURVEY.md §2 parallelism
-inventory). The TPU-idiomatic scaling story is therefore pure GSPMD data
-parallelism over the chain axis:
+inventory). The scaling story is therefore pure GSPMD data parallelism over
+the chain axis:
 
 - build a 1-D Mesh over all devices with axis 'chains',
 - shard every (n_chains, ...) array with NamedSharding(P('chains', ...)),
 - jit the run function; XLA partitions the whole scan (the counter-based
   threefry PRNG is partitionable, so even momentum sampling shards cleanly),
-- diagnostics reductions over the sharded history lower to psum/all-gather on
-  ICI automatically.
+- diagnostics reductions over the sharded history lower to psum/all-gather
+  collectives automatically (NCCL on GPUs).
 
 No shard_map is needed for the samplers — there is nothing to communicate.
 ``constrain_chains`` inserts explicit sharding constraints when XLA's
@@ -70,17 +70,9 @@ def replicate(tree, mesh: Mesh):
 
 
 def shard_map_fn(f, mesh: Mesh, in_specs, out_specs):
-    """`shard_map` across JAX versions, with replication checking disabled
-    (pallas_call outputs carry no vma/rep annotations). The stable API
-    (jax >= 0.6) takes `check_vma`; the older experimental one takes
-    `check_rep`. Centralized here so every shard_map site in the package
+    """`jax.shard_map` with replication checking disabled (pallas_call
+    outputs carry no vma annotations). Every shard_map site in the package
     (fused samplers, mesh warmup, sequential tuner, sharded diagnostics)
-    shares one compat shim."""
-    try:
-        from jax import shard_map
-        return shard_map(f, mesh=mesh, in_specs=in_specs,
+    goes through here."""
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
                          out_specs=out_specs, check_vma=False)
-    except ImportError:                                # pragma: no cover
-        from jax.experimental.shard_map import shard_map as legacy
-        return legacy(f, mesh=mesh, in_specs=in_specs,
-                      out_specs=out_specs, check_rep=False)

@@ -1,20 +1,18 @@
-"""Multi-chip fused sampling: shard_map over the chain mesh axis.
+"""Multi-device sampling: shard_map over the chain mesh axis.
 
 GSPMD partitions the XLA samplers automatically (chains are communication-
-free), but a pallas_call is opaque to the partitioner — the fused kernels
-must be explicitly shard_mapped: each device runs its kernel on its local
+free), but a pallas_call is opaque to the partitioner — the fused trajectory
+kernel must be explicitly shard_mapped: each device runs it on its local
 chain shard with a per-device RNG stream (fold_in on the mesh axis index).
 The only collectives are the final psums for the divergence/leapfrog totals;
-the sampling loops stay collective-free, so this scales over ICI exactly
-like the XLA path (v5p-8 target: SURVEY.md §7 step 7).
+the sampling loops stay collective-free.
 
-Wrappers: `grahmc_run_sharded` (fused trajectory kernel) and
-`nuts_persistent_run_sharded` (fused persistent-NUTS window kernel — the
-GSPMD alternative is the XLA machine scan, which compiles in ~405s vs ~3s
-for the fused windows, BASELINE.md).
-
-Validated on the 8-device virtual CPU mesh in tests; on TPU each shard uses
-the kernel's on-chip PRNG.
+Wrappers: `grahmc_run_sharded` (fused trajectory kernel),
+`tempered_run_sharded` (replica exchange, device-local swaps),
+`nuts_persistent_run_sharded` (the persistent-NUTS XLA machine per device)
+and `smc_run_sharded` (psum'd weight reductions, island-local resampling).
+Tested on a virtual CPU mesh; `chip_smoke.py --multi` runs the parity
+checks on four GPUs.
 """
 
 from functools import partial
@@ -28,6 +26,7 @@ from jax.sharding import PartitionSpec as P
 from mcmc_tpu.parallel import CHAIN_AXIS, shard_chains, shard_map_fn
 from mcmc_tpu.samplers.base import RunResult, init_chain_state, reset_counters
 from mcmc_tpu.samplers.grahmc import constant_schedule
+from mcmc_tpu.samplers.nuts_persistent import _count_dtype
 
 
 def grahmc_run_sharded(
@@ -44,13 +43,14 @@ def grahmc_run_sharded(
     inv_mass_matrix=None,
     friction_schedule: Optional[Callable] = None,
     collect_chains_per_device: int = 8,
-    chain_tile: Optional[int] = None,
+    backend: str = "pallas",
 ) -> RunResult:
     """Run fused-kernel GRAHMC with chains sharded over `mesh`'s chain axis.
 
     init_position: (n_chains, dim) with n_chains divisible by the mesh size.
     Collects a `collect_chains_per_device` history prefix per device
-    (concatenated across devices in the output).
+    (concatenated across devices in the output). backend='interpret' runs
+    the kernel under the Pallas interpreter.
     """
     from mcmc_tpu.ops.fused_trajectory import make_fused_grahmc_step
 
@@ -72,7 +72,7 @@ def grahmc_run_sharded(
 
     fused = make_fused_grahmc_step(
         target.log_prob_fn, target.value_and_grad_fn, num_steps,
-        friction_schedule, chain_tile=chain_tile)
+        friction_schedule, backend=backend)
 
     init_position = shard_chains(jnp.asarray(init_position, jnp.float32), mesh)
     scalars = (jnp.asarray(step_size, jnp.float32),
@@ -293,21 +293,18 @@ def nuts_persistent_run_sharded(
     max_tree_depth: int = 10,
     delta_max: float = 1000.0,
     collect_chains_per_device: int = 8,
-    chain_tile: Optional[int] = None,
-    steps_per_iter: Optional[int] = None,
     proposal_scheme: str = "endpoint",
 ) -> RunResult:
-    """Persistent NUTS through the fused window kernel, chains sharded over
-    `mesh`'s chain axis.
+    """Persistent NUTS (the XLA machine, samplers/nuts_persistent.py) with
+    chains sharded over `mesh`'s chain axis.
 
-    Each device runs its own fused VMEM state machine on its local chain
-    shard (per-device fold_in RNG); the only collectives are the final psums
-    for the global divergence/transition/leapfrog totals. The GSPMD
-    alternative partitions the XLA machine scan, which works but compiles
-    ~150x slower (BASELINE.md fused-NUTS compile row).
+    Each device runs its own asynchronous machine on its local chain shard
+    (per-device fold_in RNG): chains never communicate, so the only
+    collectives are the final psums for the global divergence/transition/
+    leapfrog totals.
     """
     from mcmc_tpu.samplers.base import ChainState
-    from mcmc_tpu.samplers.nuts_persistent import _run_persistent_pallas
+    from mcmc_tpu.samplers.nuts_persistent import nuts_run_persistent
 
     n_chains, dim = init_position.shape
     n_dev = mesh.devices.size
@@ -317,13 +314,9 @@ def nuts_persistent_run_sharded(
     if inv_mass_matrix is None:
         inv_mass_matrix = jnp.ones(dim, jnp.float32)
     inv_mass_matrix = jnp.asarray(inv_mass_matrix, jnp.float32)
-    if steps_per_iter is None:
-        steps_per_iter = next(
-            w for w in (4, 2, 1)
-            if steps_per_sample % w == 0 and burn_in_steps % w == 0)
-
     init_position = shard_chains(jnp.asarray(init_position, jnp.float32),
                                  mesh)
+    n_slots = (burn_in_steps + num_samples * steps_per_sample) * n_chains
 
     sharded = P(CHAIN_AXIS)
     out_specs = RunResult(
@@ -353,12 +346,16 @@ def nuts_persistent_run_sharded(
              out_specs=out_specs)
     def run_shard(key, local_pos, eps, inv_mass):
         key = random.fold_in(key, lax.axis_index(CHAIN_AXIS))
-        res = _run_persistent_pallas(
+        res = nuts_run_persistent(
             key, target.log_prob_fn, local_pos, eps, num_samples,
-            steps_per_sample, burn_in_steps, inv_mass, max_tree_depth,
-            delta_max, target.value_and_grad_fn, collect_chains_per_device,
-            chain_tile, steps_per_iter, proposal_scheme=proposal_scheme)
-        # lift the per-shard scalar totals to global psums
+            steps_per_sample=steps_per_sample, burn_in_steps=burn_in_steps,
+            inv_mass_matrix=inv_mass, max_tree_depth=max_tree_depth,
+            delta_max=delta_max, value_and_grad_fn=target.value_and_grad_fn,
+            collect_chains=collect_chains_per_device,
+            proposal_scheme=proposal_scheme)
+        # lift the per-shard scalar totals to global psums; the counter
+        # dtype follows the GLOBAL slot total (uint32 wraps past 2^32)
+        count_dtype = _count_dtype(n_slots)
         total_div = lax.psum(res.info["total_divergences"], CHAIN_AXIS)
         total_trans = lax.psum(jnp.sum(res.info["transitions"]), CHAIN_AXIS)
         info = dict(
@@ -366,9 +363,10 @@ def nuts_persistent_run_sharded(
             total_divergences=total_div,
             divergence_rate=total_div.astype(jnp.float32)
             / jnp.maximum(total_trans, 1).astype(jnp.float32),
-            n_leapfrogs=lax.psum(res.info["n_leapfrogs"], CHAIN_AXIS),
-            n_leapfrog_slots=lax.psum(res.info["n_leapfrog_slots"],
-                                      CHAIN_AXIS),
+            n_leapfrogs=lax.psum(
+                res.info["n_leapfrogs"].astype(count_dtype), CHAIN_AXIS),
+            n_leapfrog_slots=lax.psum(
+                res.info["n_leapfrog_slots"].astype(count_dtype), CHAIN_AXIS),
             n_devices=jnp.asarray(n_dev, jnp.int32),
         )
         return res._replace(info=info)
@@ -416,7 +414,7 @@ def smc_run_sharded(
     systematically resamples its own shard; post-resample particles carry
     the island's total weight forward — the unbiased distributed-resampling
     scheme), so no particle data ever crosses a device boundary: per stage
-    the wire traffic is a handful of scalars over ICI.
+    the wire traffic is a handful of scalars.
 
     Degenerate edge: if a single island's TOTAL weight underflows to zero
     (every local particle at -inf) its local resample is undefined — at

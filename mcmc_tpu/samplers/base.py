@@ -5,23 +5,24 @@ Framework ABI (same as the reference's, SURVEY.md §1):
 - sample histories are (num_samples, n_chains, n_dim), log-probs
   (num_samples, n_chains), accept_rate (n_chains,) float32,
 - log-probs/Hamiltonians in the energy dtype (float64 under x64, float32 on
-  the TPU fast path), positions/gradients in the position dtype.
+  the accelerator path), positions/gradients in the position dtype.
 
-TPU-first details:
+Details:
 - one ChainState NamedTuple for all samplers (grad field unused by RWMH),
   with a divergence counter the reference lacks (its divergence_rate is a
   hard-coded 0.0 placeholder, reference run_benchmarks.py:706-710),
 - targets' batched analytic value-and-grad is used when available, removing
   vmap(jax.value_and_grad) from the hot loop,
 - the run harness supports collecting only a chain prefix (``collect_chains``)
-  so 10^5-chain runs don't materialize a (S, 10^5, D) history in HBM.
+  so 10^5-chain runs don't materialize a (S, 10^5, D) history in device
+  memory.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple, Any, Dict
 
 import jax
 import jax.numpy as jnp
-from jax import lax, random, vmap
+from jax import lax, vmap
 
 from mcmc_tpu import precision
 
@@ -124,7 +125,7 @@ def metropolis_accept(key, state: ChainState, proposal_pos, proposal_lp,
                       proposal_grad, log_alpha) -> Tuple[ChainState, Array]:
     """Shared MH acceptance: log u < min(0, log_alpha); where-select fields."""
     e_dtype = state.log_prob.dtype
-    u = random.uniform(key, shape=log_alpha.shape, dtype=e_dtype)
+    u = precision.accept_uniform(key, log_alpha.shape, e_dtype)
     accept = jnp.log(u) < jnp.minimum(jnp.asarray(0.0, e_dtype), log_alpha)
     new_state = state._replace(
         position=jnp.where(accept[:, None], proposal_pos, state.position),
@@ -175,48 +176,6 @@ def run_sampler(
     samples, log_probs = collected[0], collected[1]
     extras = collected[2] if extras_fn is not None else None
     return state, samples, log_probs, extras
-
-
-def run_multistep_sampler(
-    multi_step: Callable,
-    key: Array,
-    state: ChainState,
-    num_samples: int,
-    burn_in: int,
-    trans_per_call: int,
-    collect_chains: Optional[int] = None,
-) -> RunResult:
-    """Burn-in + sampling harness for fused multi-transition kernels.
-
-    multi_step: (key, state) -> (key, state, (hist_q (T, C, D),
-    hist_lp (T, C))) advancing `trans_per_call` MH transitions per call with
-    per-transition history. Histories are flattened back to the standard
-    (num_samples, n_collect, dim) layout, so callers get exactly the
-    per-step collection the single-step `run_sampler` harness produces.
-    Shared by the GRAHMC and RWMH Pallas backends.
-    """
-    n_collect = (state.position.shape[0] if collect_chains is None
-                 else collect_chains)
-
-    if burn_in > 0:
-        def burn_body(carry, _):
-            k, s = carry
-            k, s, _ = multi_step(k, s)
-            return (k, s), None
-        (key, state), _ = lax.scan(burn_body, (key, state),
-                                   length=burn_in // trans_per_call)
-        state = reset_counters(state)
-
-    def body(carry, _):
-        k, s = carry
-        k, s, (hist_q, hist_lp) = multi_step(k, s)
-        return (k, s), (hist_q[:, :n_collect], hist_lp[:, :n_collect])
-
-    (key, state), (hq, hlp) = lax.scan(body, (key, state),
-                                       length=num_samples // trans_per_call)
-    samples = hq.reshape((num_samples,) + hq.shape[2:])
-    log_probs = hlp.reshape((num_samples,) + hlp.shape[2:])
-    return finalize_run(state, samples, log_probs, num_samples)
 
 
 def finalize_run(state: ChainState, samples, log_probs, num_samples: int,

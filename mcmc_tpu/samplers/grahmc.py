@@ -9,9 +9,10 @@ reset, optional proposal tracking for ESJD.
 Based on "Repelling-Attracting Hamiltonian Monte Carlo" (Vishwanath & Tak,
 2024); the constant schedule is the original RAHMC.
 
-TPU-native differences: batched analytic target gradients, real divergence
-counting (|dH| > 1000), a fused Pallas trajectory kernel backend
-(mcmc_tpu.ops.fused_trajectory) selected automatically on TPU.
+Differences from the reference: batched analytic target gradients, real
+divergence counting (|dH| > 1000), and a fused trajectory kernel
+(mcmc_tpu.ops.fused_trajectory) that backend='auto' selects on a GPU for
+targets with kernel math (ops/padded_targets.resolve_backend).
 """
 
 from functools import partial
@@ -21,9 +22,12 @@ import jax.numpy as jnp
 from jax import jit, random
 
 from mcmc_tpu import precision
+from mcmc_tpu.ops.fused_trajectory import (make_fused_grahmc_step,
+                                           prepare_dense_metric)
+from mcmc_tpu.ops.padded_targets import resolve_backend
 from mcmc_tpu.samplers.base import (
     ChainState, RunResult, init_chain_state, make_value_and_grad,
-    run_multistep_sampler, run_sampler, finalize_run,
+    run_sampler, finalize_run,
 )
 from mcmc_tpu.samplers.trajectory import (integrate_trajectory, kinetic_energy,
                                            sample_momentum)
@@ -92,13 +96,6 @@ def default_steepness(schedule_type: str) -> float:
 # Sampler
 # ============================================================================
 
-def _get_fused_step_factory():
-    # Imported lazily at module scope (outside any trace) on first use:
-    # importing inside a jit-traced body breaks module-level jnp constants.
-    from mcmc_tpu.ops.fused_trajectory import make_fused_grahmc_step
-    return make_fused_grahmc_step
-
-
 def grahmc_init(init_position, log_prob_fn, value_and_grad_fn=None) -> ChainState:
     return init_chain_state(init_position, log_prob_fn, value_and_grad_fn,
                             needs_grad=True)
@@ -131,14 +128,18 @@ def grahmc_step(key, state: ChainState, value_and_grad, step_size, num_steps: in
 
     p = -p  # momentum flip for reversibility
     h1 = -lp + kinetic_energy(p, inv_mass_matrix).astype(e_dtype)
-    h1 = precision.guard_energy(h1)  # non-finite H -> forced reject
+    finite = jnp.isfinite(h1)
+    h1 = precision.guard_energy(h1)
 
     log_alpha = h0 - h1
     delta_h = h1 - h0
     divergent = jnp.abs(delta_h) > DIVERGENCE_DELTA_H
 
-    u = random.uniform(k_acc, (n_chains,), dtype=e_dtype)
-    accept = jnp.log(u) < jnp.minimum(jnp.asarray(0.0, e_dtype), log_alpha)
+    u = precision.accept_uniform(k_acc, (n_chains,), e_dtype)
+    # a non-finite proposal is rejected outright: the guard value alone
+    # would still be accepted from a state whose own energy exceeds it
+    accept = finite & (jnp.log(u) < jnp.minimum(jnp.asarray(0.0, e_dtype),
+                                                log_alpha))
 
     new_state = state._replace(
         position=jnp.where(accept[:, None], q, state.position),
@@ -168,11 +169,12 @@ def grahmc_run(
     track_proposals: bool = False,
     value_and_grad_fn: Optional[Callable] = None,
     collect_chains: Optional[int] = None,
-    backend: str = "xla",
+    backend: str = "auto",
 ) -> RunResult:
     """Run GRAHMC chains. friction_schedule defaults to the constant (RAHMC)
     schedule. With track_proposals, info carries pre/proposal positions,
-    log-probs and delta_H for ESJD computation."""
+    log-probs and delta_H for ESJD computation. backend: 'auto', 'xla',
+    'pallas' or 'interpret' (ops/padded_targets.resolve_backend)."""
     if friction_schedule is None:
         friction_schedule = constant_schedule
     elif friction_schedule is NO_FRICTION:
@@ -187,46 +189,15 @@ def grahmc_run(
     vag = make_value_and_grad(log_prob_fn, value_and_grad_fn)
     steep = steepness if steepness is not None else 1.0
 
-    if backend == "pallas":
-        # Multi-transition fast path: T transitions per kernel call keep the
-        # chain state in VMEM across transitions and amortize launch/glue
-        # overhead T-fold (ops/fused_trajectory.make_fused_grahmc_multistep).
-        # Measured on v5e (50D funnel, L=16): +20% at 256 chains (dispatch-
-        # bound), -2% at 65,536 chains (VPU-bound; the per-transition history
-        # write cancels the saved state traffic) — so it auto-selects only
-        # for small-to-medium chain counts, when per-step proposal tracking
-        # isn't requested, the window sizes divide, and the transposed
-        # layout is the right one.
-        from mcmc_tpu.ops.fused_trajectory import (choose_layout,
-                                                   make_fused_grahmc_multistep,
-                                                   prepare_dense_metric)
-        n_chains_static, n_dim_static = state.position.shape
+    backend = resolve_backend(backend, value_and_grad_fn)
+    if backend != "xla":
         if jnp.ndim(inv_mass_matrix) == 2:
-            # factor the dense metric ONCE for the whole run (the multistep
-            # kernel only auto-selects when choose_layout is transposed, so
-            # "auto" yields the right d_pad for either kernel)
-            inv_mass_matrix = prepare_dense_metric(inv_mass_matrix,
-                                                   n_dim_static)
-        trans_per_call = 1
-        if (not track_proposals and choose_layout(n_dim_static) == 0
-                and n_chains_static <= 4096):
-            trans_per_call = next(
-                t for t in (8, 4, 2, 1)
-                if num_samples % t == 0 and burn_in % t == 0)
-        if trans_per_call > 1:
-            multi = make_fused_grahmc_multistep(
-                log_prob_fn, value_and_grad_fn, num_steps, friction_schedule,
-                trans_per_call)
+            # factor the dense metric ONCE for the whole run
+            inv_mass_matrix = prepare_dense_metric(inv_mass_matrix, n_dim)
+        fused = make_fused_grahmc_step(
+            log_prob_fn, value_and_grad_fn, num_steps, friction_schedule,
+            backend=backend)
 
-            def multi_step(k, s):
-                k, s, (_acc, hist_q, hist_lp, _dh) = multi(
-                    k, s, step_size, gamma, steep, inv_mass_matrix)
-                return k, s, (hist_q, hist_lp)
-            return run_multistep_sampler(
-                multi_step, key, state, num_samples, burn_in, trans_per_call,
-                collect_chains)
-        fused = _get_fused_step_factory()(
-            log_prob_fn, value_and_grad_fn, num_steps, friction_schedule)
         def step(k, s):
             return fused(k, s, step_size, gamma, steep, inv_mass_matrix)
     else:

@@ -14,7 +14,7 @@ posterior (SURVEY.md §3.3):
 - U-turn when (q_right - q_left) . p_left < 0 or . p_right < 0,
 - each chain gets its own key; chains vmapped.
 
-TPU-native differences: endpoint updates are jnp.where selects instead of
+Differences: endpoint updates are jnp.where selects instead of
 lax.cond chains (cheaper under vmap), targets' batched analytic gradients are
 used directly, and per-step divergences are counted into the chain state.
 """
@@ -121,7 +121,7 @@ def _nuts_chain_step(key, q, lp, grad, value_and_grad, step_size,
     key, k_mom, k_slice = random.split(key, 3)
     p0 = sample_momentum(k_mom, q.shape, inv_mass, pos_dtype)
     h0 = _energy(lp, p0, inv_mass)
-    log_u = jnp.log(random.uniform(k_slice, dtype=e_dtype)) - h0
+    log_u = jnp.log(precision.accept_uniform(k_slice, (), e_dtype)) - h0
 
     tree = _Tree(
         q_left=q, p_left=p0, grad_left=grad,

@@ -1,12 +1,12 @@
-"""Persistent (asynchronous) NUTS: the TPU-native fast path.
+"""Persistent (asynchronous) NUTS: the lockstep-free batched machine.
 
 The classic batched NUTS (`mcmc_tpu.samplers.nuts`) mirrors the reference's
 vmapped iterative doubling (reference samplers/NUTS.py:380-442): all chains
 double their trees in lockstep, so every chain pays for the deepest tree in
-the batch. Measured on a TPU v5e with 4096 chains on the 50D funnel, that
-lockstep tax ("stall factor" = executed/useful leapfrogs) is 8.7x at
-step=0.05 and 32x at step=0.2 — transitions/s is flat in step size because
-the deepest chain always hits the depth cap.
+the batch. With 4096 chains on the 50D funnel that lockstep tax ("stall
+factor" = executed/useful leapfrogs, a count that does not depend on the
+device) is 8.7x at step=0.05 and 32x at step=0.2 — transitions/s is flat in
+step size because the deepest chain always hits the depth cap.
 
 This module removes the synchronization entirely. The transition is flattened
 into a per-chain state machine advanced ONE leapfrog per global iteration:
@@ -196,11 +196,8 @@ def _make_window_step(value_and_grad_batched, step_size, inv_mass,
     if dense:
         from jax.scipy.linalg import solve_triangular
         # p ~ N(0, M): with M^{-1} = L L^T, p = z L^{-1} has covariance
-        # L^{-T} L^{-1} = M — the same matmul form the fused window kernel
-        # uses (ops/fused_nuts.py computes L^{-T} @ z on transposed blocks),
-        # so injected-randomness parity between the two machines holds.
-        # The factor is loop-invariant; XLA hoists the solve out of the
-        # window scan.
+        # L^{-T} L^{-1} = M. The factor is loop-invariant; XLA hoists the
+        # solve out of the window scan.
         chol = jnp.linalg.cholesky(inv_mass)
         l_inv = solve_triangular(
             chol, jnp.eye(inv_mass.shape[0], dtype=inv_mass.dtype),
@@ -457,17 +454,6 @@ def _make_window_step(value_and_grad_batched, step_size, inv_mass,
     return step
 
 
-def _resolve_backend(backend: str, value_and_grad_fn) -> str:
-    """auto -> 'pallas' on TPU for targets with analytic pallas metadata
-    (the fused-VMEM window kernel, ops/fused_nuts.py), else 'xla'."""
-    if backend != "auto":
-        return backend
-    if (jax.default_backend() == "tpu" and value_and_grad_fn is not None
-            and getattr(value_and_grad_fn, "pallas_info", None) is not None):
-        return "pallas"
-    return "xla"
-
-
 def _count_dtype(total=0):
     """Dtype for global leapfrog/slot counters: int64 under x64, else
     uint32, else f32 once the STATIC slot total exceeds uint32's range.
@@ -487,8 +473,7 @@ def _count_dtype(total=0):
 @partial(jax.jit, static_argnames=(
     "log_prob_fn", "num_samples", "steps_per_sample", "burn_in_steps",
     "max_tree_depth", "delta_max", "value_and_grad_fn", "collect_chains",
-    "backend", "chain_tile", "steps_per_iter", "snapshot_mode",
-    "proposal_scheme"))
+    "snapshot_mode", "proposal_scheme"))
 def nuts_run_persistent(
     key,
     log_prob_fn,
@@ -502,9 +487,6 @@ def nuts_run_persistent(
     delta_max=1000.0,
     value_and_grad_fn: Optional[Callable] = None,
     collect_chains: Optional[int] = None,
-    backend: str = "auto",
-    chain_tile: Optional[int] = None,
-    steps_per_iter: Optional[int] = None,
     snapshot_mode: str = "uniform",
     proposal_scheme: str = "endpoint",
 ) -> RunResult:
@@ -516,51 +498,21 @@ def nuts_run_persistent(
     transition counts, mean accept prob, mean terminal depth, and divergence
     stats with the same keys as `nuts_run`.
 
-    backend: 'xla' runs the scan-based machine; 'pallas' runs each snapshot
-    window as ONE fused VMEM kernel (ops/fused_nuts.py) — the state machine
-    never touches HBM inside a window; 'auto' picks pallas on TPU when the
-    target carries analytic pallas metadata.
-
     snapshot_mode: 'uniform' (default) emits a reservoir-sampled completed
     transition per window — unbiased over the embedded chain, matching the
     reference's per-transition statistics; 'last' emits the last completed
     state (deterministic-time sampling, length-biased by the next
     transition's duration — see the module docstring for the measured
-    effect). Both modes are implemented by both backends.
-
-    steps_per_iter (pallas backend): leapfrog slots per machine iteration —
-    bookkeeping and RNG amortize over up to that many leapfrogs
-    (ops/fused_nuts.py). steps_per_sample counts SLOTS and must be divisible
-    by it; info['n_leapfrogs'] always reports leapfrogs actually executed.
-    Default None auto-picks the largest of 4/2/1 that divides the windows
-    (4 measured optimal on v5e at tuned operating points: 345M vs 220M
-    useful grads/s at W=1; slot masking only costs throughput when trees
-    are shallow, never correctness).
+    effect).
 
     proposal_scheme: 'endpoint' (default, reference parity — measurably
     ~3% underdispersed, BASELINE.md bias audit) or 'multinomial' (per-leaf
     progressive weighting, Stan's scheme — recovers the bias; see
-    _make_window_step). Both schemes run on both backends; the fused VMEM
-    window kernel carries the multinomial reservoir and its sub-U-turn
-    checkpoint stacks in VMEM (ops/fused_nuts.py, injected-randomness
-    parity pinned in tests/test_fused_nuts.py).
+    _make_window_step).
     """
     if proposal_scheme not in ("endpoint", "multinomial"):
         raise ValueError(f"unknown proposal_scheme: {proposal_scheme!r}")
     multinomial = proposal_scheme == "multinomial"
-    resolved = _resolve_backend(backend, value_and_grad_fn)
-    if resolved == "pallas":
-        if steps_per_iter is None:
-            steps_per_iter = next(
-                w for w in (4, 2, 1)
-                if steps_per_sample % w == 0 and burn_in_steps % w == 0)
-        return _run_persistent_pallas(
-            key, log_prob_fn, init_position, step_size, num_samples,
-            steps_per_sample, burn_in_steps, inv_mass_matrix, max_tree_depth,
-            delta_max, value_and_grad_fn, collect_chains, chain_tile,
-            steps_per_iter, snapshot_mode, proposal_scheme)
-    if steps_per_iter not in (None, 1):
-        raise ValueError("steps_per_iter > 1 requires the pallas backend")
     state0 = init_chain_state(init_position, log_prob_fn, value_and_grad_fn,
                               needs_grad=True)
     C, D = state0.position.shape
@@ -639,7 +591,7 @@ def nuts_run_persistent(
         "mean_accept_probs": mean_accept,
         "mean_tree_depth": ps.depth_acc.astype(jnp.float32) / trans,
         # trace-time dtype choice: exact uint32 until 4.29e9 slots, then
-        # f32 (see _count_dtype / the fused path's counters)
+        # f32 (see _count_dtype)
         "n_leapfrogs": jnp.asarray(
             (burn_in_steps + num_samples * steps_per_sample) * C,
             _count_dtype((burn_in_steps + num_samples * steps_per_sample)
@@ -660,141 +612,3 @@ def nuts_run_persistent(
         divergence_count=ps.divergences)
     accept_rate = mean_accept.astype(jnp.float32)
     return RunResult(samples, lps, accept_rate, final_state, info)
-
-
-def _run_persistent_pallas(key, log_prob_fn, init_position, step_size,
-                           num_samples, steps_per_sample, burn_in_steps,
-                           inv_mass_matrix, max_tree_depth, delta_max,
-                           value_and_grad_fn, collect_chains, chain_tile,
-                           steps_per_iter=1, snapshot_mode="uniform",
-                           proposal_scheme="endpoint"):
-    """Persistent NUTS through the fused VMEM window kernel.
-
-    Identical machine semantics to the XLA scan (verified by an
-    injected-randomness parity test); float32 throughout (TPU fast path).
-    Each snapshot window is ONE pallas_call — the 14 (C, D) state arrays
-    (18 + 2 checkpoint stacks under the multinomial scheme) cross HBM once
-    per `steps_per_sample` leapfrogs instead of once per leapfrog, which is
-    what bounds the XLA path.
-    """
-    from mcmc_tpu.ops import fused_nuts
-
-    multinomial = proposal_scheme == "multinomial"
-    state0 = init_chain_state(init_position, log_prob_fn, value_and_grad_fn,
-                              needs_grad=True)
-    C, D = state0.position.shape
-    e_dtype = precision.energy_dtype()
-    pos_dtype = state0.position.dtype
-    if inv_mass_matrix is None:
-        inv_mass_matrix = jnp.ones(D, jnp.float32)
-
-    d_pad = fused_nuts._round_up(D, fused_nuts.SUBLANE)
-    ts = fused_nuts.pack_state(
-        state0.position.astype(jnp.float32),
-        jnp.asarray(state0.log_prob, jnp.float32),
-        state0.grad_log_prob.astype(jnp.float32), d_pad,
-        multinomial=multinomial, max_tree_depth=max_tree_depth)
-
-    dense = jnp.ndim(inv_mass_matrix) == 2
-    if dense:
-        # factor the metric ONCE for the whole run rather than relying on
-        # XLA to hoist the Cholesky out of the sampling scan (the window
-        # kernel is transposed-layout, hence layout="transposed")
-        from mcmc_tpu.ops.fused_trajectory import prepare_dense_metric
-        inv_mass_matrix = prepare_dense_metric(inv_mass_matrix, D,
-                                               layout="transposed")
-    if steps_per_sample % steps_per_iter or (
-            burn_in_steps % steps_per_iter):
-        raise ValueError("steps_per_sample and burn_in_steps must be "
-                         "divisible by steps_per_iter")
-    window_sample = fused_nuts.make_fused_nuts_window(
-        value_and_grad_fn, steps_per_sample // steps_per_iter,
-        max_tree_depth, C, D, delta_max=float(delta_max),
-        chain_tile=chain_tile, steps_per_iter=steps_per_iter, dense=dense,
-        proposal_scheme=proposal_scheme)
-
-    if burn_in_steps > 0:
-        window_burn = fused_nuts.make_fused_nuts_window(
-            value_and_grad_fn, burn_in_steps // steps_per_iter,
-            max_tree_depth, C, D, delta_max=float(delta_max),
-            chain_tile=chain_tile, steps_per_iter=steps_per_iter,
-            dense=dense, proposal_scheme=proposal_scheme)
-        key, bk = random.split(key)
-        ts = window_burn(bk, ts, step_size, inv_mass_matrix)
-        rows = ts.rows
-        for r in (fused_nuts.R_TRANSITIONS, fused_nuts.R_DIVERGENCES,
-                  fused_nuts.R_ALPHA_ACC, fused_nuts.R_DEPTH_ACC,
-                  fused_nuts.R_K_RES):
-            rows = rows.at[r].set(0.0)
-        ts = ts._replace(rows=rows)
-
-    n_collect = collect_chains or C
-    uniform_snap = snapshot_mode == "uniform"
-    if not uniform_snap and snapshot_mode != "last":
-        raise ValueError(f"unknown snapshot_mode: {snapshot_mode!r}")
-
-    def emit(ts, k):
-        ts = window_sample(k, ts, step_size, inv_mass_matrix)
-        if uniform_snap:
-            # uniformly-chosen completed transition of this window (see
-            # nuts_run_persistent docstring); zero-completion windows fall
-            # back to the last completed state
-            got = ts.rows[fused_nuts.R_K_RES] > 0.0
-            q_out = jnp.where(got, ts.q_res, ts.q)[:D, :n_collect].T
-            lp_out = jnp.where(got, ts.rows[fused_nuts.R_LP_RES],
-                               ts.rows[fused_nuts.R_LP])[:n_collect]
-            ts = ts._replace(rows=ts.rows.at[fused_nuts.R_K_RES].set(0.0))
-            return ts, (q_out, lp_out)
-        return ts, (ts.q[:D, :n_collect].T,
-                    ts.rows[fused_nuts.R_LP, :n_collect])
-
-    keys = random.split(key, num_samples)
-    ts, (samples, lps) = lax.scan(emit, ts, keys)
-
-    rows = ts.rows
-    transitions = rows[fused_nuts.R_TRANSITIONS].astype(jnp.int32)
-    divergences = rows[fused_nuts.R_DIVERGENCES].astype(jnp.int32)
-    trans = jnp.maximum(transitions, 1)
-    mean_accept = (rows[fused_nuts.R_ALPHA_ACC]
-                   / trans.astype(jnp.float32)).astype(e_dtype)
-    total_div = jnp.sum(divergences)
-    total_trans = jnp.sum(transitions)
-    final_q = ts.q[:D].T.astype(pos_dtype)
-    info = {
-        "divergence_count": divergences,
-        "total_divergences": total_div,
-        "divergence_rate": total_div.astype(jnp.float32)
-        / jnp.maximum(total_trans, 1).astype(jnp.float32),
-        "transitions": transitions,
-        "mean_accept_probs": mean_accept,
-        "mean_tree_depth": rows[fused_nuts.R_DEPTH_ACC]
-        / trans.astype(jnp.float32),
-        # leapfrogs actually executed (== the slot count for
-        # steps_per_iter=1; < slots when later unroll slots are masked).
-        # per-chain R_EXEC is exact in f32 (each <= slots/chain ~ 1e5);
-        # cast per-chain BEFORE summing so the global total stays exact
-        # past 2^24 (an f32 sum would round) and past 2^31 (int32 would
-        # overflow). The global dtype is chosen at TRACE time from the
-        # static slot total: uint32 (exact) until it saturates at 4.29e9
-        # slots — which 1024 chains x 10k snapshots x 512 steps/snapshot
-        # already exceeds (round-5 bias probe) — then f32 (relative
-        # error < 1e-7, irrelevant for rate/ess-per-gradient accounting;
-        # exact per-chain counts remain in n_leapfrogs_per_chain).
-        "n_leapfrogs": jnp.sum(rows[fused_nuts.R_EXEC].astype(
-            _count_dtype((burn_in_steps + num_samples * steps_per_sample)
-                         * C))),
-        "n_leapfrogs_per_chain": rows[fused_nuts.R_EXEC],
-        "n_leapfrog_slots": jnp.asarray(
-            (burn_in_steps + num_samples * steps_per_sample) * C,
-            _count_dtype((burn_in_steps + num_samples * steps_per_sample)
-                         * C)),
-        "final_positions": final_q,
-    }
-    final_state = ChainState(
-        position=final_q,
-        log_prob=rows[fused_nuts.R_LP].astype(e_dtype),
-        grad_log_prob=ts.grad[:D].T.astype(pos_dtype),
-        accept_count=transitions,
-        divergence_count=divergences)
-    return RunResult(samples.astype(pos_dtype), lps.astype(e_dtype),
-                     mean_accept.astype(jnp.float32), final_state, info)

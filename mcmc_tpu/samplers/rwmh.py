@@ -1,10 +1,9 @@
 """Random-Walk Metropolis-Hastings (behavioral parity: reference samplers/RWMH.py).
 
 Gaussian proposal x' = x + scale * eps, MH test log u < min(0, dlogp), burn-in
-with counter reset. One fused (n_chains, n_dim) step under lax.scan, or — with
-``backend="pallas"`` and a tagged analytic target — T transitions per fused
-Pallas kernel call with the chain state VMEM-resident
-(ops/fused_rwmh.py).
+with counter reset. One fused (n_chains, n_dim) step under lax.scan; XLA fuses
+the threefry draws into the update, so a hand-written kernel would only win
+with a counter-based generator inside it (ROADMAP).
 """
 
 from functools import partial
@@ -13,9 +12,10 @@ from typing import Optional
 import jax.numpy as jnp
 from jax import jit, random
 
+from mcmc_tpu import precision
 from mcmc_tpu.samplers.base import (
     ChainState, RunResult, ensure_batched, init_chain_state,
-    run_multistep_sampler, run_sampler, finalize_run,
+    run_sampler, finalize_run,
 )
 
 
@@ -35,7 +35,7 @@ def rwmh_step(key, state: ChainState, log_prob_fn, scale):
     proposal_lp = log_prob_fn(proposal).astype(e_dtype)
 
     log_ratio = proposal_lp - state.log_prob
-    u = random.uniform(k_accept, (n_chains,), dtype=e_dtype)
+    u = precision.accept_uniform(k_accept, (n_chains,), e_dtype)
     accept = jnp.log(u) < jnp.minimum(jnp.asarray(0.0, e_dtype), log_ratio)
 
     new_state = state._replace(
@@ -47,8 +47,7 @@ def rwmh_step(key, state: ChainState, log_prob_fn, scale):
 
 
 @partial(jit, static_argnames=("log_prob_fn", "num_samples", "burn_in",
-                               "collect_chains", "value_and_grad_fn",
-                               "backend"))
+                               "collect_chains"))
 def rwmh_run(
     key,
     log_prob_fn,
@@ -57,43 +56,9 @@ def rwmh_run(
     scale,
     burn_in: int = 0,
     collect_chains: Optional[int] = None,
-    value_and_grad_fn=None,
-    backend: str = "xla",
 ) -> RunResult:
-    """Run RWMH chains. Returns RunResult (see samplers.base).
-
-    backend="pallas" runs T MH transitions per fused kernel call (T = the
-    largest of 8/4/2/1 dividing both num_samples and burn_in) with the chain
-    state VMEM-resident; requires a `value_and_grad_fn` tagged by
-    mcmc_tpu.targets (used only for its analytic log-prob — the gradient is
-    dead-code-eliminated) and the transposed block layout (dim < ~115).
-    Falls back to the XLA scan otherwise.
-    """
+    """Run RWMH chains. Returns RunResult (see samplers.base)."""
     state = rwmh_init(init_position, log_prob_fn)
-
-    if backend == "pallas":
-        from mcmc_tpu.ops.fused_rwmh import make_fused_rwmh_multistep
-        from mcmc_tpu.ops.fused_trajectory import choose_layout
-        n_dim = state.position.shape[1]
-        if (value_and_grad_fn is not None
-                and getattr(value_and_grad_fn, "pallas_info", None)
-                and choose_layout(n_dim) == 0):
-            # RWMH transitions are cheap, so a deep window amortizes best:
-            # measured 746/798/822M chain-steps/s at T=8/16/32 (65k chains,
-            # 10D, v5e); T=64 adds <1%.
-            trans_per_call = next(
-                t for t in (32, 16, 8, 4, 2, 1)
-                if num_samples % t == 0 and burn_in % t == 0)
-            multi = make_fused_rwmh_multistep(
-                log_prob_fn, value_and_grad_fn, trans_per_call)
-
-            def multi_step(k, s):
-                k, s, (_acc, hist_q, hist_lp) = multi(k, s, scale)
-                return k, s, (hist_q, hist_lp)
-            return run_multistep_sampler(
-                multi_step, key, state, num_samples, burn_in, trans_per_call,
-                collect_chains)
-        backend = "xla"
 
     def step(k, s):
         return rwmh_step(k, s, log_prob_fn, scale)

@@ -21,7 +21,7 @@ since the base is normalized — so with a normalized target log-prob the
 estimate converges to log Z = 0 (a strong end-to-end correctness check the
 test suite uses), and with an unnormalized one it measures the evidence.
 
-TPU-native design: the particle population is ONE (P, D) batch — every
+Design: the particle population is ONE (P, D) batch — every
 phase (reweight, conditional-ESS bisection, systematic resampling, mixture
 leapfrog moves) is a batched primitive under one jit, with the adaptive
 temperature loop as a lax.while_loop carrying static-shape history buffers.
@@ -59,6 +59,8 @@ from jax import jit, lax, random
 
 from mcmc_tpu import precision
 from mcmc_tpu.samplers.base import ChainState, make_value_and_grad
+from mcmc_tpu.ops.fused_trajectory import make_fused_grahmc_step
+from mcmc_tpu.ops.padded_targets import kernel_family, resolve_backend
 from mcmc_tpu.samplers.grahmc import grahmc_step
 from mcmc_tpu.samplers.trajectory import mh_transition_dynamic
 
@@ -227,13 +229,14 @@ def smc_run(
     (default max(4 * num_steps, 16)).
     move_backend: 'xla' runs the fixed-length moves through the scan-based
     grahmc_step; 'pallas' fuses each move into ONE bridge-kernel call
-    (ops/fused_trajectory.py — the beta-mixture target evaluated entirely
-    in VMEM; requires an analytic value_and_grad_fn from mcmc_tpu.targets
-    and the fixed-length path). 'auto' picks pallas on TPU whenever those
-    conditions hold. NOTE the RNG pin: the pallas path draws momenta and
-    MH uniforms from the kernel's on-chip PRNG, a deliberately different
-    stream from the XLA path (pin versioned round 4 — pass
-    move_backend='xla' to reproduce pre-round-4 archived runs bit-for-bit).
+    (ops/fused_trajectory.py — the beta-mixture target evaluated inside
+    the kernel; requires an analytic value_and_grad_fn with kernel math
+    and the fixed-length path); 'interpret' runs that kernel under the
+    Pallas interpreter. 'auto' picks pallas whenever those conditions hold
+    and the backend resolver (ops/padded_targets.resolve_backend) picks
+    the kernel. The kernel path splits its move keys differently from
+    grahmc_step, so the two backends draw different (equally valid)
+    streams.
 
     Returns SMCResult; see the module docstring for the estimator contract.
     Cited against the reference's missing capability: its bimodal benchmark
@@ -271,33 +274,31 @@ def smc_run(
 
 def resolve_move_backend(move_backend: str, value_and_grad_fn,
                          tune_trajectory: bool, inv_mass_matrix) -> str:
-    """'auto' -> 'pallas' only when every fusion precondition holds: on a
-    real TPU, fixed-length moves (the ChEES-tuned dynamic path stays XLA),
-    an analytic-gradient target, and a diagonal (or absent) metric — the
-    bridge kernel supports dense metrics too, but SMC never learns one, so
-    auto keeps the decision simple. Explicit 'pallas' asserts the
-    preconditions loudly instead (off-TPU it runs in kernel-interpret
-    mode, which is how the CPU test tier exercises it)."""
-    if move_backend not in ("auto", "xla", "pallas"):
-        raise ValueError(f"unknown move_backend {move_backend!r}")
-    has_info = getattr(value_and_grad_fn, "pallas_info", None) is not None
+    """'auto' -> the backend resolver's choice (ops/padded_targets.
+    resolve_backend: the kernel on a GPU for targets with kernel math),
+    but only for fixed-length moves (the ChEES-tuned dynamic path stays
+    XLA) and a diagonal (or absent) metric — the bridge kernel supports
+    dense metrics too, but SMC never learns one, so auto keeps the
+    decision simple. Explicit 'pallas'/'interpret' assert the
+    preconditions loudly instead."""
     if move_backend == "auto":
         dense = (inv_mass_matrix is not None
                  and jnp.ndim(inv_mass_matrix) == 2)
-        return ("pallas"
-                if (has_info and not tune_trajectory and not dense
-                    and jax.default_backend() == "tpu")
-                else "xla")
-    if move_backend == "pallas":
+        if tune_trajectory or dense:
+            return "xla"
+    resolved = resolve_backend(move_backend, value_and_grad_fn)
+    if move_backend in ("pallas", "interpret"):
         if tune_trajectory:
             raise ValueError(
-                "move_backend='pallas' fuses the fixed-length move path; "
-                "tune_trajectory uses the XLA dynamic-length transition")
-        if not has_info:
+                f"move_backend={move_backend!r} fuses the fixed-length move "
+                "path; tune_trajectory uses the XLA dynamic-length "
+                "transition")
+        if kernel_family(value_and_grad_fn) is None:
             raise TypeError(
-                "move_backend='pallas' needs an analytic value_and_grad_fn "
-                "with pallas_info (a mcmc_tpu.targets factory)")
-    return move_backend
+                f"move_backend={move_backend!r} needs an analytic "
+                "value_and_grad_fn with kernel math (a mcmc_tpu.targets "
+                "factory of ops/padded_targets.KERNEL_FAMILIES)")
+    return resolved
 
 
 @partial(jit, static_argnames=(
@@ -348,15 +349,15 @@ def _smc_run_jit(
     base_sampler, _base_lp, base_vag = gaussian_base(D, base_mean, base_scale)
     target_vag = make_value_and_grad(log_prob_fn, value_and_grad_fn)
 
-    if move_backend == "pallas":
+    fused = move_backend != "xla"
+    if fused:
         # One fused bridge-kernel call per move: the beta-mixture target
-        # (ops/fused_trajectory.py `bridged` variant) is evaluated entirely
-        # in VMEM across all num_steps leapfrogs — the same kernel family
-        # the plain GRAHMC headline path uses, closing the ~20x move-rate
-        # gap of the scan-based path (VERDICT r3 weak #1).
-        from mcmc_tpu.ops.fused_trajectory import make_fused_grahmc_step
+        # (ops/fused_trajectory.py `bridged` variant) is evaluated inside
+        # the kernel across all num_steps leapfrogs — the same kernel the
+        # plain GRAHMC path uses.
         fused_move = make_fused_grahmc_step(
-            log_prob_fn, value_and_grad_fn, num_steps, friction_schedule)
+            log_prob_fn, value_and_grad_fn, num_steps, friction_schedule,
+            backend=move_backend)
         bmean_arr = (jnp.zeros(D, jnp.float32) if base_mean is None
                      else jnp.broadcast_to(
                          jnp.asarray(base_mean, jnp.float32), (D,)))
@@ -446,11 +447,9 @@ def _smc_run_jit(
         # weight, so no particle ever crosses a device boundary). The
         # whole resample lives under lax.cond: most stages keep their
         # population, and the skipped branch saves the cumsum/searchsorted
-        # plus five (P, D)-class gathers per stage — measurably the SMC
-        # per-stage floor, not the moves (round 4 probe: marginal move
-        # rate ~1.4B leapfrogs/s on BOTH backends; wall time was fixed
-        # population overhead). Taken-branch results are bit-identical to
-        # the old unconditional-where formulation (same kr stream).
+        # plus five (P, D)-class gathers per stage. Taken-branch results
+        # are bit-identical to the old unconditional-where formulation
+        # (same kr stream).
         do_res = rel < resample_threshold
 
         def _resample(args):
@@ -507,7 +506,7 @@ def _smc_run_jit(
             mk, st, eps_l, cs_t, jk, n_lf = carry
             if not tune_trajectory:
                 prev = st.accept_count
-                if move_backend == "pallas":
+                if fused:
                     mk, st, _extras = fused_move(
                         mk, st, eps_l, gamma, steepness, inv_mass,
                         bridge=(b_new, bmean_arr, bscale_arr))

@@ -13,7 +13,7 @@ adjacent replicas exchange configurations with the Metropolis probability
 which preserves the product measure prod_k pi^{beta_k}; the beta=1 replica
 is then an exact sampler of pi with mode-hopping supplied by the ladder.
 
-TPU-native design: the K x C replica-chain grid is ONE flattened (K*C, D)
+Design: the K x C replica-chain grid is ONE flattened (K*C, D)
 batch through the shared conformal-leapfrog transition (samplers/grahmc.py
 grahmc_step) — per-replica tempering enters as a (K*C,) row scaling the
 batched value-and-grad (tempered grad = beta * grad) and a per-chain step
@@ -42,6 +42,8 @@ from jax import jit, lax, random
 from mcmc_tpu import precision
 from mcmc_tpu.samplers.base import (ChainState, RunResult, init_chain_state,
                                     reset_counters)
+from mcmc_tpu.ops.fused_trajectory import make_fused_grahmc_step
+from mcmc_tpu.ops.padded_targets import resolve_backend
 from mcmc_tpu.samplers.grahmc import grahmc_step
 
 Array = jnp.ndarray
@@ -61,13 +63,6 @@ def geometric_ladder(n_temps: int, beta_min: float = 0.05) -> jnp.ndarray:
         raise ValueError("beta_min must be in (0, 1)")
     k = jnp.arange(n_temps, dtype=jnp.float32) / (n_temps - 1)
     return jnp.asarray(beta_min, jnp.float32) ** k
-
-
-def _resolve_tempered_backend(backend: str, value_and_grad_fn) -> str:
-    if backend != "auto":
-        return backend
-    from mcmc_tpu.ops.padded_targets import auto_pallas_backend
-    return "pallas" if auto_pallas_backend(value_and_grad_fn) else "xla"
 
 
 def _validate_betas(betas) -> None:
@@ -104,7 +99,7 @@ def tempered_run(
     friction_schedule: Optional[Callable] = None,
     value_and_grad_fn: Optional[Callable] = None,
     collect_chains: Optional[int] = None,
-    backend: str = "xla",
+    backend: str = "auto",
     init_replica_position: Optional[Array] = None,
 ) -> RunResult:
     """Replica-exchange HMC/GRAHMC — see `_tempered_run_jit` for the full
@@ -144,7 +139,7 @@ def _tempered_run_jit(
     friction_schedule: Optional[Callable] = None,
     value_and_grad_fn: Optional[Callable] = None,
     collect_chains: Optional[int] = None,
-    backend: str = "xla",
+    backend: str = "auto",
     init_replica_position: Optional[Array] = None,
 ) -> RunResult:
     """Replica-exchange HMC/GRAHMC. Returns the beta=1 replica's RunResult.
@@ -174,10 +169,11 @@ def _tempered_run_jit(
     backend: 'xla' (grahmc_step scan), 'pallas' (the fused trajectory
     kernel, ops/fused_trajectory.py — ONE compiled kernel shared by all K
     replicas, called per replica with its scalar (eps_k, beta_k); the beta
-    enters the kernel as the static-gated lp_scale), or 'auto' (pallas on
-    TPU when the target carries an analytic fused specialization).
+    enters the kernel as the static-gated lp_scale), 'interpret' (that
+    kernel under the Pallas interpreter) or 'auto'
+    (ops/padded_targets.resolve_backend).
     """
-    backend = _resolve_tempered_backend(backend, value_and_grad_fn)
+    backend = resolve_backend(backend, value_and_grad_fn)
     if betas is None:
         betas = geometric_ladder(n_temps, beta_min)
     betas = jnp.asarray(betas, jnp.float32)
@@ -246,7 +242,7 @@ def _tempered_run_jit(
         d_beta = (betas - jnp.roll(betas, -1)).astype(lp_un.dtype)  # b_k-b_{k+1}
         log_acc = d_beta[:, None] * (nxt(lp_un) - lp_un)  # (K, C)
         active = (pair_cap & ((pair_idx % 2) == phase))[:, None]
-        u = random.uniform(ku, (K, C), dtype=lp_un.dtype)
+        u = precision.accept_uniform(ku, (K, C), lp_un.dtype)
         take_next = active & (jnp.log(u) < log_acc)       # row k adopts k+1
         take_prev = jnp.roll(take_next, 1, axis=0)        # row k+1 adopts k
         # roll wrap is harmless: row 0's take_prev comes from row K-1, which
@@ -273,10 +269,10 @@ def _tempered_run_jit(
                     swap_acc[1] + active[:, 0].astype(jnp.float32)[:K - 1] * C)
         return key, state, swap_acc
 
-    if backend == "pallas":
-        from mcmc_tpu.ops.fused_trajectory import make_fused_grahmc_step
+    if backend != "xla":
         fused_step = make_fused_grahmc_step(
-            log_prob_fn, value_and_grad_fn, num_steps, friction_schedule)
+            log_prob_fn, value_and_grad_fn, num_steps, friction_schedule,
+            backend=backend)
 
         def replica_sweep(key, state):
             """One MH transition on every replica: K calls into the ONE

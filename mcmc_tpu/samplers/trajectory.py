@@ -14,7 +14,8 @@ HMC.py:85-134):
     p *= exp(-gamma_t eps/2)
 
 The XLA path is a lax.scan over substeps on (n_chains, n_dim) blocks; the
-Pallas path (mcmc_tpu.ops) fuses the whole trajectory + MH accept on-chip.
+Pallas path (mcmc_tpu.ops) fuses the whole trajectory + MH accept into one
+kernel.
 """
 
 from typing import Callable, Optional, Tuple
@@ -27,12 +28,9 @@ Array = jnp.ndarray
 # The metric is DIAGONAL (inv_mass_matrix shape (D,), the reference's only
 # mode) or DENSE (shape (D, D), a full inverse mass matrix — a beyond-
 # reference extension matching Stan's dense_e). Dense velocity/whitening
-# are (C, D) @ (D, D) matmuls — MXU work on TPU, negligible next to the
-# per-substep gradient at the D <= ~100 dims this library targets. Every
-# fused kernel implements the dense metric in-kernel with VMEM-resident
-# M^{-1} + L^{-1} matmuls: the trajectory kernels
-# (ops/fused_trajectory.py) and the persistent-NUTS window kernel
-# (ops/fused_nuts.py).
+# are (C, D) @ (D, D) matmuls, small next to the per-substep gradient at
+# the D <= ~100 dims this library targets. The fused trajectory kernel
+# (ops/fused_trajectory.py) takes the dense M^{-1} as an operand.
 
 
 def velocity(p: Array, inv_mass_matrix: Array) -> Array:
@@ -222,12 +220,14 @@ def mh_transition_dynamic(key, state, value_and_grad, step_size, n_leapfrogs,
         value_and_grad, step_size, n_leapfrogs, inv_mass_matrix,
         friction_schedule=friction_schedule, gamma_max=gamma_max,
         steepness=steepness)
-    h1 = precision.guard_energy(
-        -lp1 + kinetic_energy(p1, inv_mass_matrix).astype(e_dtype))
+    h1 = -lp1 + kinetic_energy(p1, inv_mass_matrix).astype(e_dtype)
+    finite = jnp.isfinite(h1)
+    h1 = precision.guard_energy(h1)
     log_alpha = jnp.minimum(jnp.asarray(0.0, e_dtype), h0 - h1)
     divergent = jnp.abs(h1 - h0) > DIVERGENCE_DELTA_H
-    u = random.uniform(k_acc, (state.position.shape[0],), dtype=e_dtype)
-    accept = jnp.log(u) < log_alpha
+    u = precision.accept_uniform(k_acc, (state.position.shape[0],),
+                                 e_dtype)
+    accept = finite & (jnp.log(u) < log_alpha)
     new_state = state._replace(
         position=jnp.where(accept[:, None], q1, state.position),
         log_prob=jnp.where(accept, lp1, state.log_prob),

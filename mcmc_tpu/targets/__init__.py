@@ -1,17 +1,17 @@
-"""Target distributions for MCMC benchmarking (TPU-native rebuild).
+"""Target distributions for MCMC benchmarking.
 
 Feature parity with the reference's ``benchmarks/targets.py`` (see reference
 targets.py:23-701): the same 8 analytic targets + the 3 RAHMC-paper targets that the
 reference imports from its (missing) ``benchmarks/rahmc_paper_targets.py``
 (reference targets.py:506-524 documents their factory signatures).
 
-TPU-first differences from the reference:
+Differences from the reference:
 
 - Every target carries a **batched analytic value-and-grad** (``value_and_grad_fn``)
   derived by hand and checked against ``jax.grad`` to float64 tolerance in
   ``tests/test_targets.py``. This removes per-chain ``vmap(jax.value_and_grad(...))``
   from the hot loop and — critically — lets the fused Pallas kernels compute target
-  gradients on-chip, where ``jax.grad`` cannot be used.
+  gradients inside the kernel, where ``jax.grad`` cannot be used.
 - ``family``/``params`` metadata lets downstream layers (Pallas kernels, reference
   samplers) specialize per target without string-parsing names.
 - Reference samplers are batched on-device RNG (one fused kernel per draw batch).
@@ -30,7 +30,7 @@ class TargetDistribution(NamedTuple):
 
     Field layout is a superset of the reference's TargetDistribution
     (reference targets.py:23-31) so user code written against the reference works
-    unchanged; the extra fields power the TPU-native kernel path.
+    unchanged; the extra fields power the fused kernel path.
     """
     log_prob_fn: Callable[[jnp.ndarray], jnp.ndarray]
     dim: int
@@ -247,8 +247,8 @@ def neals_funnel_noncentered(dim: int = 10) -> TargetDistribution:
 
     The centered funnel (reference targets.py:149-213) defeats every sampler
     at gate grade — the three-way parity experiment (BASELINE.md "Funnel
-    apples-to-apples") shows reference CPU, rebuild CPU and rebuild TPU all
-    fail identically on the neck's varying curvature. The textbook fix is to
+    apples-to-apples") shows the reference and this rebuild failing
+    identically on the neck's varying curvature. The textbook fix is to
     SAMPLE auxiliary coordinates y = (v, z) with v ~ N(0, 9) and
     z_i ~ N(0, 1) i.i.d. — a well-conditioned diagonal Gaussian — and
     recover funnel draws deterministically via `funnel_transform`
@@ -338,7 +338,7 @@ def log_gamma(dim: int = 10, shape: float = 2.0, rate: float = 1.0) -> TargetDis
 
 
 # ============================================================================
-# Unconstraining reparameterization (Stan's transform layer, TPU-native)
+# Unconstraining reparameterization (Stan's transform layer, on device)
 # ============================================================================
 
 def exp_transform(y):

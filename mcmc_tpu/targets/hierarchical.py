@@ -14,7 +14,8 @@ Hand-derived gradients:
 
 The funnel-shaped hierarchy (tau controls every beta's scale) makes this the
 production-realistic stress test; the likelihood term is a (chains, p) @
-(p, n_data) matmul — MXU work, unlike the elementwise benchmark targets.
+(p, n_data) matmul — tensor-core work, unlike the elementwise benchmark
+targets.
 Synthetic data is generated deterministically from the factory seed.
 """
 
@@ -48,7 +49,7 @@ def hierarchical_logistic(dim: int = 100, n_data: int = 256,
         yq = y.astype(q_dtype)
         tau = q[..., 0]
         beta = q[..., 1:]
-        z = beta @ Xq.T                                  # (..., n_data) — MXU
+        z = beta @ Xq.T                                  # (..., n_data) matmul
         # log-likelihood: sum y z - log1p(exp(z)), stable via logaddexp
         log_lik = jnp.sum(yq * z - jnp.logaddexp(0.0, z), axis=-1)
         inv_scale = jnp.exp(-tau)
@@ -83,7 +84,7 @@ def hierarchical_logistic(dim: int = 100, n_data: int = 256,
         name=f"HierarchicalLogistic{dim}D_n{n_data}",
         description=(f"{dim}D hierarchical Bayesian logistic posterior "
                      f"({p} coefficients + log-scale, {n_data} observations) "
-                     f"- production-realistic funnel geometry with MXU likelihood"),
+                     f"- production-realistic funnel geometry with a matmul likelihood"),
         init_sampler=init_sampler,
         value_and_grad_fn=value_and_grad_fn,
         family="hierarchical_logistic",

@@ -37,8 +37,8 @@ emitted chain keeps the operating point dual averaging already chose).
 Because the correction rides on sqrt(beta_k), it auto-tracks the ladder
 as the spacing update moves the temperatures under it.
 
-TPU-native shape: each adaptation round is ONE jitted tempered scan
-(`samplers/tempered.py::tempered_run` — fused Pallas kernels, mesh
+Shape: each adaptation round is ONE jitted tempered scan
+(`samplers/tempered.py::tempered_run` — the fused kernel, mesh
 shard_map, everything the sampling phase uses) whose per-pair swap
 acceptance and per-rung transition acceptance come back as (K-1,) / (K,)
 vectors; the host loop only does the ~2K-scalar Robbins-Monro update

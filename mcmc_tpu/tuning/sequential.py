@@ -84,10 +84,11 @@ def sequential_tune_grahmc(
     schedule_fn = get_friction_schedule(schedule_type)
     vag = make_value_and_grad(log_prob_fn, value_and_grad_fn)
 
-    if backend == "pallas":
+    if backend != "xla":
         from mcmc_tpu.ops.fused_trajectory import make_fused_grahmc_step
         fused = make_fused_grahmc_step(log_prob_fn, value_and_grad_fn,
-                                       num_steps, schedule_fn)
+                                       num_steps, schedule_fn,
+                                       backend=backend)
 
         def transition(k, s, step_size, gamma):
             return fused(k, s, step_size, gamma, steepness, inv_mass_matrix)

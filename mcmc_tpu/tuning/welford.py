@@ -25,8 +25,8 @@ class WelfordState(NamedTuple):
 def welford_init(shape, dtype=None) -> WelfordState:
     """Initialize. shape may be an int (dim) or a tuple ((n_chains, dim)).
 
-    Default dtype: float64 under x64 (reference parity), float32 on the TPU
-    fast path."""
+    Default dtype: float64 under x64 (reference parity), float32 on the
+    accelerator path."""
     if isinstance(shape, int):
         shape = (shape,)
     if dtype is None:
@@ -115,7 +115,7 @@ def psum_increment(new, old, axis_name: str):
 
 def dense_moment_update(state: DenseMomentState,
                         positions: jnp.ndarray) -> DenseMomentState:
-    """Accumulate a (n_chains, dim) batch of draws (one MXU matmul)."""
+    """Accumulate a (n_chains, dim) batch of draws (one matmul)."""
     d = positions.astype(state.center.dtype) - state.center
     return state._replace(
         count=state.count + d.shape[0],

@@ -6,9 +6,9 @@ Usage:
     python run_benchmarks.py --all-targets --mass-matrix-mode no-mass
 
 Flags, defaults, and the benchmark_results.{csv,json} output schema match the
-reference run_benchmarks.py:1346-1390; the backend is the TPU-native
+reference run_benchmarks.py:1346-1390; the backend is the batched JAX
 mcmc_tpu stack (on-device warmup scans, analytic gradients, real divergence
-rates).
+rates, the fused trajectory kernel on a GPU).
 """
 
 import argparse
@@ -25,10 +25,10 @@ def _positive_int(text):
 
 
 def main():
-    # Persistent XLA compilation cache: the fused kernels and their window
-    # scans compile once per (shape, program) — cache them across CLI
-    # invocations so repeat benchmark runs skip straight to execution. Opt
-    # out with JAX_COMPILATION_CACHE_DIR= (set to empty).
+    # Persistent XLA compilation cache: programs compile once per (shape,
+    # program) — cache them across CLI invocations so repeat benchmark runs
+    # skip straight to execution. Opt out with JAX_COMPILATION_CACHE_DIR=
+    # (set to empty).
     enable_compilation_cache()
     parser = argparse.ArgumentParser(
         description="Run MCMC benchmarks with adaptive warmup")
@@ -62,7 +62,7 @@ def main():
                         help="Mass matrix: learn (diagonal, reference "
                         "parity), identity, both, or 'dense' (full "
                         "covariance metric — beyond-reference, Stan's "
-                        "dense_e; runs in-kernel on every fused TPU path)")
+                        "dense_e; runs in the fused trajectory kernel too)")
     parser.add_argument("--track-convergence", action="store_true",
                         help="Track W2 at log-spaced checkpoints")
     parser.add_argument("--convergence-base", type=float, default=1.5,
@@ -72,12 +72,11 @@ def main():
     parser.add_argument("--seed", type=int, default=42, help="Random seed")
     parser.add_argument("--nuts-backend", type=str, default="auto",
                         choices=["auto", "classic", "persistent"],
-                        help="NUTS execution path: 'auto' (default — the "
-                        "asynchronous persistent TPU fast path on TPU when "
-                        "the target has a fused-kernel specialization, "
-                        "classic otherwise), 'classic' (reference lockstep "
-                        "tree doubling, the opt-out), or 'persistent' "
-                        "(force the asynchronous fixed-interval-snapshot path)")
+                        help="NUTS execution path: 'auto' (default — "
+                        "classic until a GPU cell decides the rule), "
+                        "'classic' (reference lockstep tree doubling), or "
+                        "'persistent' (the asynchronous "
+                        "fixed-interval-snapshot machine)")
     parser.add_argument("--mesh", type=str, default="auto",
                         help="Chain-shard over devices: 'auto' (all local devices when >1), an integer device count, or 'off'")
     parser.add_argument("--nuts-steps-per-sample", type=_positive_int, default=64,
@@ -92,9 +91,8 @@ def main():
                         "endpoints only, measurably ~3%% underdispersed) or "
                         "'multinomial' (per-leaf progressive weighting with "
                         "the full iterative sub-U-turn check set — Stan "
-                        "semantics, recovers exact marginals; runs on both "
-                        "the XLA machine and the fused VMEM window kernel, "
-                        "ignored by the classic backend)")
+                        "semantics, recovers exact marginals; ignored by "
+                        "the classic backend)")
     parser.add_argument("--trajectory-tuner", type=str, default="grid",
                         choices=["grid", "chees"],
                         help="Trajectory-length selection for HMC/GRAHMC: "
@@ -210,7 +208,7 @@ def main():
     print(f"Mass matrix: {args.mass_matrix_mode} | Output: {args.output_dir}")
     print("=" * 80)
 
-    df = run_all_benchmarks(
+    rows = run_all_benchmarks(
         samplers=args.samplers,
         targets=targets,
         grahmc_schedules=args.schedules,
@@ -244,7 +242,7 @@ def main():
         smc_tune_trajectory=args.smc_tune_trajectory,
         reparam=args.reparam,
     )
-    print_summary(df)
+    print_summary(rows)
 
 
 if __name__ == "__main__":

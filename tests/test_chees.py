@@ -153,9 +153,9 @@ def test_chees_rejects_unknown_sampler():
 
 @pytest.mark.slow
 def test_chees_jittered_efficiency_on_noncentered_funnel():
-    """Production-semantics regression pin on the green-gate target (the
-    archived TPU run measures chees at 16.3x the grid winner's
-    ESS/gradient — BASELINE.md): the tuner lands T in a sane band and
+    """Production-semantics regression pin on the green-gate target (an
+    earlier archived run measured chees at 16.3x the grid winner's
+    ESS/gradient, a device-independent ratio — BASELINE.md): the tuner lands T in a sane band and
     JITTERED sampling at the tuned point clears an absolute min-dim
     bulk-ESS-per-leapfrog floor (measured ~10-20; floor 2 leaves 5x
     seed margin).
@@ -286,14 +286,14 @@ def test_chees_run_pallas_quantized_jitter_interpret():
     """The Pallas backend bins the jitter into <= jitter_levels static
     trajectory lengths (one fused kernel each); realized per-draw counts
     must come from exactly that level set. Runs in interpreter mode on CPU
-    (same kernel body as TPU, injected randomness)."""
+    (same kernel body as on the GPU)."""
     from mcmc_tpu.tuning.chees import chees_run
     t = get_target("standard_normal", dim=4)
     init = random.normal(random.PRNGKey(2), (8, 4)).astype(jnp.float32)
     res = chees_run(random.PRNGKey(3), t.log_prob_fn, init, step_size=0.4,
                     trajectory_length=2.0, num_samples=48,
                     value_and_grad_fn=t.value_and_grad_fn,
-                    backend="pallas", jitter_levels=3)
+                    backend="interpret", jitter_levels=3)
     Ls = res.info["jitter_level_steps"]
     assert 1 <= len(Ls) <= 3
     ns = res.info["num_steps_per_draw"]
@@ -400,8 +400,8 @@ def test_chees_run_under_mesh_moments_and_sharding():
 def test_chees_run_pallas_under_mesh_interpret():
     """The quantized-jitter Pallas backend composes with the mesh: each
     device lax.switches into fused kernels built at its LOCAL chain width
-    (pallas_call is opaque to GSPMD — this is the path a multi-chip TPU
-    CLI run takes for the sampling phase). Interpreter mode on CPU."""
+    (pallas_call is opaque to GSPMD — this is the path a multi-GPU CLI
+    run takes for the sampling phase). Interpreter mode on CPU."""
     from mcmc_tpu.parallel import make_mesh, shard_chains
     from mcmc_tpu.tuning.chees import chees_run
 
@@ -412,7 +412,7 @@ def test_chees_run_pallas_under_mesh_interpret():
     res = chees_run(random.PRNGKey(5), t.log_prob_fn, init, step_size=0.4,
                     trajectory_length=1.6, num_samples=24,
                     value_and_grad_fn=t.value_and_grad_fn,
-                    backend="pallas", jitter_levels=3, mesh=mesh)
+                    backend="interpret", jitter_levels=3, mesh=mesh)
     assert res.samples.shape == (24, 32, 4)
     ns = res.info["num_steps_per_draw"]
     assert set(np.unique(ns).tolist()) <= set(res.info["jitter_level_steps"])

@@ -101,6 +101,65 @@ def test_incremental_save_and_column_pinning(tmp_path):
     assert len(csv_lines) == 3  # header + 2 rows
 
 
+def test_csv_rows_follow_pinned_columns(tmp_path):
+    """The stdlib CSV writer keeps the pinned column order across appends:
+    later keys outside it are dropped, missing ones and None/NaN are empty,
+    bools and numbers are written as str() writes them."""
+    import csv
+    r1 = {"sampler": "hmc", "target": "T", "usable": True, "rhat_max": None,
+          "ess": float("nan"), "n": 3}
+    r2 = {"target": "U", "sampler": "nuts", "extra": 7, "n": 2.5}
+    save_result_incremental(r1, str(tmp_path), is_first=True)
+    save_result_incremental(r2, str(tmp_path), is_first=False)
+    with open(tmp_path / "benchmark_results.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == ["sampler", "target", "usable", "rhat_max", "ess", "n"]
+    assert rows[1] == ["hmc", "T", "True", "", "", "3"]
+    assert rows[2] == ["nuts", "U", "", "", "", "2.5"]
+
+
+def test_csv_nested_fields_written_as_json(tmp_path):
+    """grid_search_info / convergence_trace go into the CSV as JSON text
+    (the JSON file keeps them as objects)."""
+    import csv
+    info = {"best_L": 8, "all_results": [{"num_steps": 8, "usable": True}]}
+    save_result_incremental({"sampler": "hmc", "grid_search_info": info,
+                             "convergence_trace": None}, str(tmp_path),
+                            is_first=True)
+    with open(tmp_path / "benchmark_results.csv", newline="") as f:
+        header, row = list(csv.reader(f))
+    cell = dict(zip(header, row))
+    assert json.loads(cell["grid_search_info"]) == info
+    assert cell["convergence_trace"] == ""
+    saved = json.loads((tmp_path / "benchmark_results.json").read_text())
+    assert saved[0]["grid_search_info"] == info
+
+
+def test_print_summary_on_result_rows(capsys):
+    """print_summary works on the list of row dicts run_all_benchmarks
+    returns: pass/usable counts, grid failures, efficiency ranking."""
+    from mcmc_tpu.benchmark import print_summary
+    rows = [
+        {"sampler": "hmc", "target": "T", "schedule": None,
+         "quality_pass": True, "usable": True, "ess_per_gradient": 0.1,
+         "ess_bulk_min": 500.0, "rhat_max": 1.001},
+        {"sampler": "grahmc", "target": "T", "schedule": "tanh",
+         "quality_pass": False, "usable": True, "ess_per_gradient": 0.2,
+         "ess_bulk_min": 900.0, "rhat_max": None},
+        {"sampler": "nuts", "target": "U", "quality_pass": False,
+         "usable": False, "grid_search_failed": True, "num_steps": 8},
+    ]
+    print_summary(rows)
+    out = capsys.readouterr().out
+    assert "High quality: 1/3" in out and "Usable: 2/3" in out
+    assert "GRID FAILURE: nuts on U" in out
+    top = out[out.index("Top 10"):]
+    assert top.index("grahmc-tanh") < top.index("hmc ")
+    assert "R-hat=n/a" in top
+    print_summary([])
+    assert "No results." in capsys.readouterr().out
+
+
 def test_incremental_save_replaces_stale_config_row(tmp_path):
     """Re-measuring a config under new run-level settings (e.g. a dense
     NUTS row whose backend resolution changed) must REPLACE its stale row
@@ -255,9 +314,10 @@ def test_single_benchmark_mesh_sharded_e2e():
 
 
 def test_sample_dispatches_to_sharded_fused_kernel():
-    """With a mesh and backend='pallas', _sample routes to the shard_map
-    fused-kernel wrapper (grahmc_run_sharded) and returns a full-chain
-    history with real divergence totals."""
+    """With a mesh and a kernel backend ('interpret' here: the kernel under
+    the interpreter), _sample routes to the shard_map fused-kernel wrapper
+    (grahmc_run_sharded) and returns a full-chain history with real
+    divergence totals."""
     from mcmc_tpu.benchmark.runner import _sample
     from mcmc_tpu.parallel import make_mesh
 
@@ -268,7 +328,7 @@ def test_sample_dispatches_to_sharded_fused_kernel():
                   num_steps=6, num_samples=50, inv_mass=None,
                   schedule_type="tanh", warmup_info={"gamma": 0.5,
                                                      "steepness": 1.0},
-                  backend="pallas", mesh=mesh)
+                  backend="interpret", mesh=mesh)
     assert res.samples.shape == (50, 32, 4)
     assert res.final_state.position.shape == (32, 4)
     assert "total_divergences" in res.info
@@ -287,7 +347,7 @@ def test_sample_dispatches_hmc_to_sharded_fused_kernel():
     res = _sample("hmc", t, random.PRNGKey(7), pos, step_size=0.4,
                   num_steps=6, num_samples=40, inv_mass=None,
                   schedule_type="constant", warmup_info={},
-                  backend="pallas", mesh=mesh)
+                  backend="interpret", mesh=mesh)
     assert res.samples.shape == (40, 16, 4)
     assert np.all(np.isfinite(np.asarray(res.samples)))
 
@@ -305,35 +365,33 @@ def test_single_benchmark_nuts_persistent_backend():
     for f in SCHEMA_FIELDS:
         assert f in r, f"missing field {f}"
     # n_gradients = leapfrogs actually executed: the XLA machine executes
-    # every slot (== 300*64*8); the fused window path (selected when the
-    # conftest's 8-device mesh routes through nuts_persistent_run_sharded)
-    # masks unrollable slots past subtree boundaries, so executed <= slots.
+    # every slot (== 300*64*8).
     slots = 300 * 64 * 8
     assert 0 < r["n_gradients"] <= slots
     assert r["avg_tree_depth"] is not None
 
 
 def test_nuts_backend_auto_resolution(monkeypatch):
-    """'auto' (the CLI default, VERDICT r2 #1) pins dispatch: persistent on
-    TPU for targets carrying a fused-kernel specialization, classic
-    otherwise; explicit values pass through unchanged."""
+    """'auto' (the CLI default) pins dispatch to classic on every platform
+    until a GPU cell decides the rule (ROADMAP); explicit values pass
+    through unchanged. The trajectory backend of HMC/GRAHMC rows follows
+    the shared resolver: the kernel only on a GPU, RWMH always XLA."""
+    import jax
     import mcmc_tpu.benchmark.runner as runner_mod
 
     t = get_target("standard_normal", dim=4)
     assert getattr(t.value_and_grad_fn, "pallas_info", None) is not None
-
-    # off-TPU: auto -> classic (reference semantics)
-    assert runner_mod._resolve_nuts_backend("auto", t) == "classic"
-
-    # simulated TPU backend: auto -> persistent when pallas_info is present
-    import jax
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert runner_mod._resolve_nuts_backend("auto", t) == "persistent"
-
-    # ...and classic when the target has no fused specialization
     t_plain = t._replace(
         value_and_grad_fn=lambda q: t.value_and_grad_fn(q))
-    assert runner_mod._resolve_nuts_backend("auto", t_plain) == "classic"
+
+    for platform in ("cpu", "gpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        assert runner_mod._resolve_nuts_backend("auto", t) == "classic"
+        assert runner_mod._resolve_backend("rwmh", t) == "xla"
+        assert runner_mod._resolve_backend("hmc", t_plain) == "xla"
+    assert runner_mod._resolve_backend("grahmc", t) == "pallas"   # gpu
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert runner_mod._resolve_backend("grahmc", t) == "xla"
 
     # explicit values are honored as given (the opt-out)
     assert runner_mod._resolve_nuts_backend("classic", t) == "classic"
@@ -396,9 +454,8 @@ def test_nuts_proposal_flag_threads_to_persistent_path():
     through the Stan-scheme XLA machine and the row records the scheme.
 
     slow: the cost is TRACING the warmup + sampling multinomial machines
-    on this 1-vCPU host (~6 min even at tiny draw budgets and with a warm
-    XLA persistent cache — measured 2026-08-19); the scheme's statistical
-    correctness is pinned by test_nuts_persistent.py, and the fast tier
+    on a single CPU core (~6 min even at tiny draw budgets); the scheme's
+    statistical correctness is pinned by test_nuts_persistent.py, and the fast tier
     keeps the pure-Python resume-key routing check below."""
     t = get_target("standard_normal", dim=4)
     r = run_single_benchmark_with_L(
@@ -614,10 +671,10 @@ def test_chees_cap_fallback_annotates_and_resumes(tmp_path, monkeypatch):
               warmup_cache=False)
     df1 = runner_mod.run_all_benchmarks(**kw)
     assert calls == {"chees": 1, "grid": 1}
-    row = df1.iloc[0]
+    row = df1[0]
     assert row["trajectory_tuner"] == "chees"
     assert bool(row["chees_fell_back"]) is True
-    assert "chees_cap_hit" not in df1.columns  # abandoned row was discarded
+    assert all("chees_cap_hit" not in r for r in df1)  # abandoned row was discarded
 
     # resume: the fallback row satisfies the chees signature — no re-run
     runner_mod.run_all_benchmarks(**kw)
@@ -641,7 +698,7 @@ def test_run_all_benchmarks_chees_tuner_e2e(tmp_path):
               warmup_cache=False)
     df = run_all_benchmarks(**kw)
     assert len(df) == 1
-    row = df.iloc[0]
+    row = df[0]
     assert row.get("error") is None or (isinstance(row.get("error"), float)
                                         and np.isnan(row.get("error")))
     assert row["trajectory_tuner"] == "chees"
@@ -673,9 +730,9 @@ def test_run_all_benchmarks_chees_tuner_mesh_e2e(tmp_path):
               mesh_devices=8, warmup_cache=False)
     df = run_all_benchmarks(**kw)
     assert len(df) == 1
-    row = df.iloc[0]
+    row = df[0]
     assert row["trajectory_tuner"] == "chees"
-    assert "chees_fell_back" not in df.columns
+    assert "chees_fell_back" not in df[0]
     assert row["chees_trajectory_length"] > 0
     assert row["n_gradients"] > 0
     assert bool(row["usable"])
@@ -752,7 +809,7 @@ def test_run_all_benchmarks_smc_e2e(tmp_path):
               smc_move_steps=2, smc_num_steps=6)
     df1 = run_all_benchmarks(**kw)
     assert len(df1) == 1
-    row = df1.iloc[0].to_dict()
+    row = dict(df1[0])
     assert row.get("error") is None or (isinstance(row.get("error"), float)
                                         and np.isnan(row["error"]))
     assert row["sampler"] == "smc"

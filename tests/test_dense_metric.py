@@ -1,9 +1,9 @@
 """Dense (full-covariance) metric support — a beyond-reference extension
 matching Stan's dense_e (the reference implements the diagonal metric only,
 reference tuning/adaptation.py:265). XLA samplers accept a (D, D)
-inv_mass_matrix; the warmup learns it with pooled second moments; every
-fused kernel (HMC/GRAHMC trajectories AND the persistent-NUTS window) runs
-the dense metric in-kernel with VMEM-resident M^{-1} / L^{-1} matmuls."""
+inv_mass_matrix; the warmup learns it with pooled second moments; the fused
+trajectory kernel takes the dense M^{-1} as an operand (one float32 pl.dot
+per velocity) and its momenta are drawn outside with the L^{-1} factor."""
 
 import numpy as np
 import pytest
@@ -101,20 +101,21 @@ def test_grahmc_dense_runs_and_samples():
                                atol=0.15)
 
 
-@pytest.mark.parametrize("layout", ["lanes", "transposed"])
-def test_fused_debug_dense_matches_xla(layout):
+@pytest.mark.parametrize("family", ["standard_normal", "neals_funnel"])
+def test_fused_debug_dense_matches_xla(family):
     """Fused trajectory kernel with a DENSE metric == XLA trajectory math
-    bit-for-bit at the accept decision, in both block layouts (injected
-    momentum/uniforms; interpret mode on CPU)."""
+    bit-for-bit at the accept decision (injected momentum/uniforms;
+    interpret mode on CPU), on a Gaussian and on the funnel."""
+    from mcmc_tpu.targets import get_target
     from mcmc_tpu.ops.fused_trajectory import make_debug_trajectory
     from mcmc_tpu.samplers import get_friction_schedule
     from mcmc_tpu.samplers.trajectory import (integrate_trajectory,
                                               kinetic_energy)
 
     dim, n_chains, L = 6, 8, 5
-    t = standard_normal(dim)
+    t = get_target(family, dim=dim)
     k1, k2, k3 = random.split(random.PRNGKey(0), 3)
-    q = random.normal(k1, (n_chains, dim)).astype(jnp.float32)
+    q = (random.normal(k1, (n_chains, dim)) * 0.5).astype(jnp.float32)
     rng = np.random.default_rng(0)
     a = rng.normal(size=(dim, dim)).astype(np.float32)
     invm = jnp.asarray(a @ a.T / dim + 0.5 * np.eye(dim), jnp.float32)
@@ -125,16 +126,18 @@ def test_fused_debug_dense_matches_xla(layout):
     eps, gamma, steep = 0.1, 1.0, 0.5
     sched = get_friction_schedule("tanh")
 
-    qx, px, lpx, _ = integrate_trajectory(
-        q, p0, lp, grad.astype(jnp.float32), t.value_and_grad_fn, eps, L,
-        invm, friction_schedule=sched, gamma_max=gamma, steepness=steep)
-    h0 = -lp + kinetic_energy(p0, invm)
-    h1 = -lpx + kinetic_energy(-px, invm)
+    with jax.default_matmul_precision("highest"):
+        qx, px, lpx, _ = integrate_trajectory(
+            q, p0, lp, grad.astype(jnp.float32), t.value_and_grad_fn, eps,
+            L, invm, friction_schedule=sched, gamma_max=gamma,
+            steepness=steep)
+        h0 = -lp + kinetic_energy(p0, invm)
+        h1 = -lpx + kinetic_energy(-px, invm)
     acc_ref = jnp.log(u) < jnp.minimum(0.0, h0 - h1)
     q_ref = jnp.where(acc_ref[:, None], qx, q)
 
-    run = make_debug_trajectory(t.value_and_grad_fn, L, sched, n_chains,
-                                dim, layout=layout)
+    run = make_debug_trajectory(t.value_and_grad_fn, L, sched,
+                                backend="interpret")
     qk, _, _, acck, dhk = run(q, lp, grad, p0, u, eps, gamma, steep, invm)
     np.testing.assert_array_equal(np.asarray(acck), np.asarray(acc_ref))
     np.testing.assert_allclose(np.asarray(qk), np.asarray(q_ref),
@@ -144,9 +147,9 @@ def test_fused_debug_dense_matches_xla(layout):
 
 
 def test_fused_grahmc_run_dense_multistep_moments():
-    """grahmc_run(backend='pallas') with an ORACLE dense metric routes
-    through the fused MULTISTEP kernel (transposed layout, T transitions
-    per call) and recovers the rho=0.9 covariance."""
+    """grahmc_run(backend='interpret') with an ORACLE dense metric runs
+    the fused kernel (dense metric factored once per run) and recovers the
+    rho=0.9 covariance."""
     from mcmc_tpu.samplers import grahmc_run
     from mcmc_tpu.samplers.grahmc import NO_FRICTION
 
@@ -158,7 +161,7 @@ def test_fused_grahmc_run_dense_multistep_moments():
                      inv_mass_matrix=jnp.asarray(t.true_cov, jnp.float32),
                      friction_schedule=NO_FRICTION,
                      value_and_grad_fn=t.value_and_grad_fn,
-                     backend="pallas")
+                     backend="interpret")
     assert float(np.mean(res.accept_rate)) > 0.8   # oracle metric, eps 0.5
     s = np.asarray(res.samples).reshape(-1, dim)
     np.testing.assert_allclose(np.cov(s.T), np.asarray(t.true_cov),
@@ -166,9 +169,8 @@ def test_fused_grahmc_run_dense_multistep_moments():
 
 
 def test_fused_grahmc_run_dense_single_step_moments():
-    """Same with track_proposals=True, which disables the multistep
-    auto-select — covers the single-step fused kernel's dense path and the
-    proposal-endpoint export under a dense metric."""
+    """Same with track_proposals=True — covers the proposal-endpoint
+    export of the fused kernel under a dense metric."""
     from mcmc_tpu.samplers import grahmc_run
     from mcmc_tpu.samplers.grahmc import NO_FRICTION
 
@@ -180,7 +182,7 @@ def test_fused_grahmc_run_dense_single_step_moments():
                      inv_mass_matrix=jnp.asarray(t.true_cov, jnp.float32),
                      friction_schedule=NO_FRICTION, track_proposals=True,
                      value_and_grad_fn=t.value_and_grad_fn,
-                     backend="pallas")
+                     backend="interpret")
     s = np.asarray(res.samples).reshape(-1, dim)
     np.testing.assert_allclose(np.cov(s.T), np.asarray(t.true_cov),
                                atol=0.15)
@@ -204,7 +206,7 @@ def test_prepared_dense_metric_matches_raw():
     cs = init_chain_state(init, t.log_prob_fn, t.value_and_grad_fn,
                           needs_grad=True)
     fused = make_fused_grahmc_step(t.log_prob_fn, t.value_and_grad_fn, 6,
-                                   None)
+                                   None, backend="interpret")
     raw = jnp.asarray(t.true_cov, jnp.float32)
     prepared = prepare_dense_metric(raw, dim)
     args = (random.PRNGKey(12), cs, jnp.float32(0.4), jnp.float32(0.0),
@@ -215,8 +217,8 @@ def test_prepared_dense_metric_matches_raw():
                                   np.asarray(s_prep.position))
     np.testing.assert_array_equal(np.asarray(acc_raw), np.asarray(acc_prep))
 
-    # a metric prepared for the wrong layout (wrong d_pad) is rejected
-    wrong = prepare_dense_metric(raw, dim, layout="lanes")  # d_pad 128
+    # a metric prepared for another dim (wrong d_pad) is rejected
+    wrong = prepare_dense_metric(jnp.eye(20, dtype=jnp.float32), 20)
     with pytest.raises(ValueError, match="d_pad"):
         fused(*args, wrong)
 
@@ -262,12 +264,9 @@ def test_persistent_nuts_dense_runs_and_samples():
 
 
 def test_persistent_nuts_dense_pallas_backend_moments():
-    """Persistent NUTS on the PALLAS backend with an ORACLE dense metric:
-    the fused window kernel carries the (D, D) M^{-1} plus its L^{-T}
-    unwhitening factor in VMEM (interpret mode on CPU, same kernel body as
-    TPU) — exact moments on the rho=0.9 correlated Gaussian. Bit-level
-    parity with the XLA machine is pinned separately in
-    tests/test_fused_nuts.py::test_fused_window_dense_matches_xla_machine."""
+    """Persistent NUTS (the XLA machine) with an ORACLE dense metric under
+    the multinomial scheme, from float32 inputs — exact moments on the
+    rho=0.9 correlated Gaussian."""
     from mcmc_tpu.samplers import nuts_run_persistent
 
     dim = 4
@@ -278,7 +277,7 @@ def test_persistent_nuts_dense_pallas_backend_moments():
         random.PRNGKey(6), t.log_prob_fn, init, step_size=0.5,
         num_samples=400, steps_per_sample=8, burn_in_steps=64,
         inv_mass_matrix=jnp.asarray(t.true_cov, jnp.float32),
-        max_tree_depth=8, backend="pallas",
+        max_tree_depth=8, proposal_scheme="multinomial",
         value_and_grad_fn=t.value_and_grad_fn)
     s = np.asarray(res.samples).reshape(-1, dim)
     np.testing.assert_allclose(np.cov(s.T), np.asarray(t.true_cov),
@@ -313,10 +312,10 @@ def test_warmup_learns_dense_metric():
 
 
 def test_warmup_dense_pallas_backend():
-    """run_adaptive_warmup with learn_mass_matrix='dense' and the PALLAS
-    backend runs its window scans through the fused kernel (no xla
-    downgrade) and still learns a (D, D) metric aligned with the target
-    covariance."""
+    """run_adaptive_warmup with learn_mass_matrix='dense' and the kernel
+    backend (under the interpreter) runs its window scans through the
+    fused kernel (no xla downgrade) and still learns a (D, D) metric
+    aligned with the target covariance."""
     from mcmc_tpu.tuning import run_adaptive_warmup
 
     dim = 4
@@ -324,7 +323,7 @@ def test_warmup_dense_pallas_backend():
     init = random.normal(random.PRNGKey(0), (32, dim)) * 0.3
     step, inv_mass, pos, info = run_adaptive_warmup(
         "grahmc", t.log_prob_fn, None, init, random.PRNGKey(1),
-        num_warmup=400, learn_mass_matrix="dense", backend="pallas",
+        num_warmup=400, learn_mass_matrix="dense", backend="interpret",
         value_and_grad_fn=t.value_and_grad_fn, schedule_type="constant")
     assert inv_mass.shape == (dim, dim)
     assert np.isfinite(step) and step > 0
@@ -335,9 +334,9 @@ def test_warmup_dense_pallas_backend():
 
 
 def test_chees_run_pallas_dense_interpret():
-    """chees_run accepts a dense metric on the PALLAS backend: the
-    quantized fused kernels carry the (D, D) M^{-1} in VMEM (interpret
-    mode on CPU, same kernel body as TPU)."""
+    """chees_run accepts a dense metric on the kernel backend: the
+    quantized fused kernels take the (D, D) M^{-1} as an operand
+    (interpret mode on CPU, same kernel body as on the GPU)."""
     from mcmc_tpu.tuning.chees import chees_run
 
     dim = 4
@@ -347,16 +346,15 @@ def test_chees_run_pallas_dense_interpret():
                     trajectory_length=2.0, num_samples=48,
                     inv_mass_matrix=jnp.asarray(t.true_cov, jnp.float32),
                     value_and_grad_fn=t.value_and_grad_fn,
-                    backend="pallas", jitter_levels=3)
-    assert res.info["jitter_backend"] == "pallas"
+                    backend="interpret", jitter_levels=3)
+    assert res.info["jitter_backend"] == "interpret"
     assert np.isfinite(np.asarray(res.samples)).all()
     assert 0.0 < float(res.accept_rate.mean()) <= 1.0
 
 
 def test_warmup_dense_fused_windows():
-    """Forcing the fused persistent-NUTS warmup windows with a dense metric
-    works: the window factory builds the dense kernel variant (was a
-    diagonal-only ValueError before the kernel grew VMEM metric matmuls)."""
+    """Persistent-NUTS warmup windows with a dense metric work: the XLA
+    machine is metric-polymorphic and the warmup learns a (D, D) metric."""
     from mcmc_tpu.tuning import run_adaptive_warmup
 
     t = standard_normal(3)
@@ -364,7 +362,7 @@ def test_warmup_dense_fused_windows():
     step, inv_mass, pos, info = run_adaptive_warmup(
         "nuts", t.log_prob_fn, None, init, random.PRNGKey(0),
         num_warmup=150, learn_mass_matrix="dense", backend="persistent",
-        fused_warmup=True, value_and_grad_fn=t.value_and_grad_fn,
+        value_and_grad_fn=t.value_and_grad_fn,
         exploration_steps=50, adaptation_windows=[25, 50],
         cooldown_steps=25)
     assert inv_mass.shape == (3, 3)
@@ -375,9 +373,9 @@ def test_warmup_dense_fused_windows():
 @pytest.mark.slow
 def test_chees_grahmc_dense_with_friction_tuning():
     """GRAHMC + ChEES + dense: the phase-3 sequential friction tuner
-    accepts the (D, D) metric (fused probe kernels carry it in VMEM on
-    TPU; XLA probes on CPU); the learned metric still captures the
-    ridge."""
+    accepts the (D, D) metric (the fused probe kernel takes it as an
+    operand on a GPU; XLA probes on CPU); the learned metric still
+    captures the ridge."""
     from mcmc_tpu.tuning.chees import run_chees_warmup
 
     dim = 4
@@ -470,7 +468,7 @@ def test_mesh_dense_sampling_routing(monkeypatch):
         res = runner_mod._sample(
             sampler, t, random.PRNGKey(2), pos, step_size=0.5, num_steps=4,
             num_samples=8, inv_mass=dense, schedule_type="constant",
-            warmup_info={}, backend="pallas", mesh=mesh,
+            warmup_info={}, backend="interpret", mesh=mesh,
             nuts_backend=nuts_backend, nuts_steps_per_sample=8)
         assert res.samples.shape[0] == 8
         assert np.all(np.isfinite(np.asarray(res.samples)))
@@ -513,7 +511,7 @@ def test_cli_dense_mass_mode_e2e(tmp_path):
         mass_matrix_modes=["dense"], mesh_devices="off",
         warmup_cache=False)
     assert len(df) == 1
-    row = df.iloc[0]
+    row = df[0]
     assert row["mass_matrix_learned"] == "dense"
     assert row.get("error") is None or (isinstance(row.get("error"), float)
                                         and np.isnan(row.get("error")))
@@ -638,7 +636,7 @@ def test_cli_dense_mesh_e2e(tmp_path):
         mass_matrix_modes=["dense"], mesh_devices=8,
         warmup_cache=False)
     assert len(df) == 1
-    row = df.iloc[0]
+    row = df[0]
     assert row["mass_matrix_learned"] == "dense"
     assert row["ess_bulk_min"] > 100
     assert row["rhat_max"] < 1.1

@@ -182,9 +182,9 @@ def test_hdi_and_summary_table():
         assert abs(lo[j] + 1.96 * s) < 0.25 * s, (j, lo[j])
         assert abs(hi[j] - 1.96 * s) < 0.25 * s, (j, hi[j])
     df = summary(x, hdi_prob=0.95, var_names=["a", "b", "c"])
-    assert list(df.index) == ["a", "b", "c"]
+    assert df["variable"] == ["a", "b", "c"]
     assert {"mean", "sd", "mcse_mean", "ess_bulk", "ess_tail",
-            "r_hat"} <= set(df.columns)
+            "r_hat"} <= set(df)
     assert (df["r_hat"] < 1.02).all()
     assert np.allclose(df["hdi_lo_95%"], lo)
     with pytest.raises(ValueError, match="hdi_prob"):
@@ -217,5 +217,5 @@ def test_summary_accepts_flat_draws():
     rng = np.random.default_rng(10)
     flat = jnp.asarray(rng.normal(size=(400, 3)))
     df = summary(flat)
-    assert df.shape[0] == 3
+    assert len(df["variable"]) == 3 and df["r_hat"].shape == (3,)
     assert np.all(np.isfinite(df["r_hat"]))

@@ -1,8 +1,10 @@
-"""Pallas kernel tests (interpreter mode on CPU).
+"""Fused trajectory kernel tests (Pallas interpreter on CPU).
 
 Strategy (SURVEY.md §4 implication (b)): compare the fused kernel against the
 XLA scan path — padded target math exactly, full trajectories with injected
 randomness to float32 tolerance, and the production kernel statistically.
+The GPU compiler cannot run here, but the Triton lowering can: every kernel
+variant is lowered for CUDA, which catches any primitive the route refuses.
 """
 
 import numpy as np
@@ -13,151 +15,168 @@ import jax.numpy as jnp
 import jax.random as random
 
 from mcmc_tpu.targets import get_target
-from mcmc_tpu.ops.padded_targets import make_padded_vag, PALLAS_FAMILIES
-from mcmc_tpu.ops.fused_trajectory import make_debug_trajectory, make_fused_grahmc_step
+from mcmc_tpu.ops import fused_trajectory as ft
+from mcmc_tpu.ops.padded_targets import (KERNEL_FAMILIES, make_padded_vag,
+                                         resolve_backend)
+from mcmc_tpu.ops.fused_trajectory import (block_dim, chain_tile_for,
+                                           make_debug_trajectory,
+                                           make_fused_grahmc_step)
 from mcmc_tpu.samplers import grahmc_init, get_friction_schedule
-from mcmc_tpu.samplers.grahmc import grahmc_step
 from mcmc_tpu.samplers.trajectory import integrate_trajectory, kinetic_energy
 
 PALLAS_DIM = 20
-D_PAD = 128
+GAUSSIAN_FAMILIES = sorted(set(KERNEL_FAMILIES)
+                           - {"multimodal_funnel_2d", "concentric_l1_balls",
+                              "nested_l1_balls"})
 
 
-def _pad(x, width=D_PAD):
+def _pad(x, width):
     return jnp.pad(x, ((0, 0), (0, width - x.shape[1])))
 
 
-def test_choose_layout():
-    from mcmc_tpu.ops.fused_trajectory import choose_layout
-    assert choose_layout(50) == 0     # 56 rows beat 128 lanes
-    assert choose_layout(128) == 1    # exact lane fit
-    assert choose_layout(20) == 0
+def _dense_metric(dim, seed=5):
+    a = random.normal(random.PRNGKey(seed), (dim, dim), jnp.float32)
+    return (a @ a.T / dim + jnp.eye(dim)).astype(jnp.float32)
 
 
-@pytest.mark.parametrize("dim_axis", [1, 0])
-@pytest.mark.parametrize("name", sorted(set(PALLAS_FAMILIES)
-                         - {"multimodal_funnel_2d", "concentric_l1_balls",
-                            "nested_l1_balls", "hierarchical_logistic"}))
-def test_padded_vag_matches_unpadded(name, dim_axis):
+@pytest.mark.parametrize("dim,expect", [(1, 16), (2, 16), (16, 16),
+                                        (17, 32), (50, 64), (64, 64),
+                                        (100, 128)])
+def test_block_dim_is_power_of_two_at_least_16(dim, expect):
+    assert block_dim(dim) == expect
+
+
+def test_chain_tile_rules():
+    assert chain_tile_for(65536) == ft.CHAIN_TILE
+    assert chain_tile_for(3) == 16          # pl.dot row minimum
+    assert chain_tile_for(20) == min(32, ft.CHAIN_TILE)
+    tile = chain_tile_for(4096)
+    assert tile >= 16 and tile & (tile - 1) == 0
+
+
+@pytest.mark.parametrize("dim", [PALLAS_DIM, 7])
+@pytest.mark.parametrize("name", GAUSSIAN_FAMILIES)
+def test_padded_vag_matches_unpadded(name, dim):
     """Padded-block math == analytic math on real coords, zeros on padding,
-    in both the lane and transposed layouts."""
-    t = get_target(name, dim=PALLAS_DIM)
+    for a dim that fills most of its block and an odd one (7 of 16)."""
+    t = get_target(name, dim=dim)
     key = random.PRNGKey(0)
     x = (t.init_sampler(key, 16) if t.init_sampler is not None
-         else random.normal(key, (16, PALLAS_DIM)))
+         else random.normal(key, (16, dim)))
     x32 = jnp.asarray(x, jnp.float32)
-    d_pad = D_PAD if dim_axis == 1 else 24   # 8-sublane padding for dim 20
+    d_pad = block_dim(dim)
 
-    vag_pad = make_padded_vag(t.value_and_grad_fn, d_pad, dim_axis)
-    block = _pad(x32, d_pad)
-    if dim_axis == 0:
-        block = block.T
-    lp_pad, grad_pad = vag_pad(block)
-    if dim_axis == 0:
-        lp_pad, grad_pad = lp_pad.T, grad_pad.T
-
+    lp_pad, grad_pad = make_padded_vag(t.value_and_grad_fn, d_pad)(
+        _pad(x32, d_pad))
     lp_ref, grad_ref = t.value_and_grad_fn(x32)
     np.testing.assert_allclose(np.asarray(lp_pad[:, 0]),
                                np.asarray(lp_ref, np.float32),
                                rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(grad_pad[:, :PALLAS_DIM]),
+    np.testing.assert_allclose(np.asarray(grad_pad[:, :dim]),
                                np.asarray(grad_ref, np.float32),
                                rtol=2e-5, atol=2e-5)
     # padding coords must carry zero gradient (dynamics invariant)
-    assert np.all(np.asarray(grad_pad[:, PALLAS_DIM:]) == 0.0)
+    assert np.all(np.asarray(grad_pad[:, dim:]) == 0.0)
 
 
 def test_padded_vag_requires_metadata():
     with pytest.raises(TypeError):
-        make_padded_vag(lambda x: (x.sum(-1), x), D_PAD)
+        make_padded_vag(lambda x: (x.sum(-1), x), 32)
 
 
-@pytest.mark.parametrize("layout", ["lanes", "transposed"])
+def _xla_transition(t_vag, q, lp, grad, p0, u, eps, L, inv_mass, sched,
+                    gamma, steep):
+    """The XLA integrator + MH accept on the same injected randomness, at
+    full float32 matmul precision (the reference the kernel must match)."""
+    with jax.default_matmul_precision("highest"):
+        qx, px, lpx, _ = integrate_trajectory(
+            q, p0, lp, grad, t_vag, eps, L, inv_mass,
+            friction_schedule=sched, gamma_max=gamma, steepness=steep)
+        h0 = -lp + kinetic_energy(p0, inv_mass)
+        h1 = -lpx + kinetic_energy(-px, inv_mass)
+    accept = jnp.log(u) < jnp.minimum(0.0, h0 - h1)
+    return jnp.where(accept[:, None], qx, q), accept, h1 - h0
+
+
+@pytest.mark.parametrize("metric", ["diag", "dense"])
 @pytest.mark.parametrize("schedule", [None, "tanh", "constant", "sine"])
-def test_debug_kernel_matches_xla_trajectory(schedule, layout):
-    """Injected-randomness fused transition == XLA conformal leapfrog + MH."""
+def test_debug_kernel_matches_xla_trajectory(schedule, metric):
+    """Injected-randomness fused transition == XLA conformal leapfrog + MH,
+    for both metric kinds (the dense one through pl.dot)."""
     t = get_target("standard_normal", dim=PALLAS_DIM)
     n_chains, L = 8, 10
     eps, gamma, steep = 0.15, 0.8, 2.0
-    key = random.PRNGKey(1)
-    k1, k2, k3 = random.split(key, 3)
+    k1, k2, k3 = random.split(random.PRNGKey(1), 3)
     q = random.normal(k1, (n_chains, PALLAS_DIM), dtype=jnp.float32)
     p0 = random.normal(k2, (n_chains, PALLAS_DIM), dtype=jnp.float32)
     u = random.uniform(k3, (n_chains,), dtype=jnp.float32)
-    inv_mass = jnp.ones(PALLAS_DIM, jnp.float32)
+    inv_mass = (jnp.linspace(0.5, 1.5, PALLAS_DIM, dtype=jnp.float32)
+                if metric == "diag" else _dense_metric(PALLAS_DIM))
     lp, grad = t.value_and_grad_fn(q)
-    lp = lp.astype(jnp.float32)
-
+    lp, grad = lp.astype(jnp.float32), grad.astype(jnp.float32)
     sched_fn = get_friction_schedule(schedule) if schedule else None
 
-    # XLA reference path (f32 throughout)
-    qx, px, lpx, gradx = integrate_trajectory(
-        q, p0, lp, grad.astype(jnp.float32), t.value_and_grad_fn, eps, L,
-        inv_mass, friction_schedule=sched_fn, gamma_max=gamma, steepness=steep)
-    h0 = -lp + kinetic_energy(p0, inv_mass)
-    h1 = -lpx + kinetic_energy(-px, inv_mass)
-    accept_ref = jnp.log(u) < jnp.minimum(0.0, h0 - h1)
-    q_ref = jnp.where(accept_ref[:, None], qx, q)
-
-    # Fused kernel (interpret mode)
+    q_ref, accept_ref, dh_ref = _xla_transition(
+        t.value_and_grad_fn, q, lp, grad, p0, u, eps, L, inv_mass, sched_fn,
+        gamma, steep)
     run = make_debug_trajectory(t.value_and_grad_fn, L, sched_fn,
-                                n_chains, PALLAS_DIM, layout=layout)
+                                backend="interpret")
     q_k, lp_k, grad_k, accept_k, dh_k = run(q, lp, grad, p0, u, eps, gamma,
                                             steep, inv_mass)
 
     np.testing.assert_array_equal(np.asarray(accept_k), np.asarray(accept_ref))
     np.testing.assert_allclose(np.asarray(q_k), np.asarray(q_ref),
                                rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(dh_k), np.asarray(h1 - h0),
+    np.testing.assert_allclose(np.asarray(dh_k), np.asarray(dh_ref),
                                rtol=2e-3, atol=2e-3)
 
 
 def test_debug_kernel_funnel_matches_xla():
-    """Same check on the funnel (exercises the col0/mask handling)."""
+    """Same check on the funnel (exercises the coordinate-0 / mask handling)
+    with a chain count that spans several blocks and leaves the last one
+    partly empty."""
     t = get_target("neals_funnel", dim=PALLAS_DIM)
-    n_chains, L = 8, 6
-    key = random.PRNGKey(2)
-    k1, k2, k3 = random.split(key, 3)
+    n_chains, L = 2 * ft.CHAIN_TILE + 5, 6
+    k1, k2, k3 = random.split(random.PRNGKey(2), 3)
     q = t.init_sampler(k1, n_chains).astype(jnp.float32)
     p0 = random.normal(k2, (n_chains, PALLAS_DIM), dtype=jnp.float32)
     u = random.uniform(k3, (n_chains,), dtype=jnp.float32)
     inv_mass = jnp.ones(PALLAS_DIM, jnp.float32)
     lp, grad = t.value_and_grad_fn(q)
-    lp = lp.astype(jnp.float32)
-    eps, gamma, steep = 0.05, 1.0, 0.5
+    lp, grad = lp.astype(jnp.float32), grad.astype(jnp.float32)
     sched = get_friction_schedule("tanh")
 
-    qx, px, lpx, gradx = integrate_trajectory(
-        q, p0, lp, grad.astype(jnp.float32), t.value_and_grad_fn, eps, L,
-        inv_mass, friction_schedule=sched, gamma_max=gamma, steepness=steep)
-    h0 = -lp + kinetic_energy(p0, inv_mass)
-    h1 = -lpx + kinetic_energy(px, inv_mass)
-
+    q_ref, accept_ref, dh_ref = _xla_transition(
+        t.value_and_grad_fn, q, lp, grad, p0, u, 0.05, L, inv_mass, sched,
+        1.0, 0.5)
     run = make_debug_trajectory(t.value_and_grad_fn, L, sched,
-                                n_chains, PALLAS_DIM)
-    q_k, lp_k, grad_k, accept_k, dh_k = run(q, lp, grad, p0, u, eps, gamma,
-                                            steep, inv_mass)
-    np.testing.assert_allclose(np.asarray(dh_k), np.asarray(h1 - h0),
+                                backend="interpret")
+    q_k, _, _, accept_k, dh_k = run(q, lp, grad, p0, u, 0.05, 1.0, 0.5,
+                                    inv_mass)
+    np.testing.assert_array_equal(np.asarray(accept_k), np.asarray(accept_ref))
+    np.testing.assert_allclose(np.asarray(q_k), np.asarray(q_ref),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(np.asarray(dh_k), np.asarray(dh_ref),
                                rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("layout", ["lanes", "transposed"])
+@pytest.mark.parametrize("metric", ["diag", "dense"])
 @pytest.mark.parametrize("beta", [0.15, 0.7])
-def test_bridge_kernel_matches_xla_mixture(beta, layout):
+def test_bridge_kernel_matches_xla_mixture(beta, metric):
     """The `bridged` kernel variant (SMC move fusion) == XLA leapfrog on the
     hand-built geometric-bridge mixture beta*logp + (1-beta)*log N(m, s^2 I),
-    with identical injected randomness, in both block layouts."""
+    with identical injected randomness, for both metric kinds."""
     from mcmc_tpu.samplers.smc import gaussian_base
     t = get_target("neals_funnel", dim=PALLAS_DIM)
     n_chains, L = 8, 6
     eps = 0.08
     base_mean, base_scale = 0.5, 2.0
-    key = random.PRNGKey(5)
-    k1, k2, k3 = random.split(key, 3)
+    k1, k2, k3 = random.split(random.PRNGKey(5), 3)
     q = t.init_sampler(k1, n_chains).astype(jnp.float32)
     p0 = random.normal(k2, (n_chains, PALLAS_DIM), dtype=jnp.float32)
     u = random.uniform(k3, (n_chains,), dtype=jnp.float32)
-    inv_mass = jnp.ones(PALLAS_DIM, jnp.float32)
+    inv_mass = (jnp.ones(PALLAS_DIM, jnp.float32) if metric == "diag"
+                else _dense_metric(PALLAS_DIM, seed=9))
 
     _, _, base_vag = gaussian_base(PALLAS_DIM, base_mean, base_scale)
 
@@ -168,15 +187,9 @@ def test_bridge_kernel_matches_xla_mixture(beta, layout):
                 beta * gt.astype(jnp.float32) + (1 - beta) * gb)
 
     lp, grad = mixture_vag(q)
-    qx, px, lpx, _ = integrate_trajectory(
-        q, p0, lp, grad, mixture_vag, eps, L, inv_mass)
-    h0 = -lp + kinetic_energy(p0, inv_mass)
-    h1 = -lpx + kinetic_energy(-px, inv_mass)
-    accept_ref = jnp.log(u) < jnp.minimum(0.0, h0 - h1)
-    q_ref = jnp.where(accept_ref[:, None], qx, q)
-
-    run = make_debug_trajectory(t.value_and_grad_fn, L, None,
-                                n_chains, PALLAS_DIM, layout=layout)
+    q_ref, accept_ref, dh_ref = _xla_transition(
+        mixture_vag, q, lp, grad, p0, u, eps, L, inv_mass, None, 0.0, 1.0)
+    run = make_debug_trajectory(t.value_and_grad_fn, L, None, backend="interpret")
     q_k, lp_k, _, accept_k, dh_k = run(
         q, lp, grad, p0, u, eps, 0.0, 1.0, inv_mass,
         bridge=(beta, base_mean, base_scale))
@@ -185,8 +198,34 @@ def test_bridge_kernel_matches_xla_mixture(beta, layout):
                                   np.asarray(accept_ref))
     np.testing.assert_allclose(np.asarray(q_k), np.asarray(q_ref),
                                rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(dh_k), np.asarray(h1 - h0),
+    np.testing.assert_allclose(np.asarray(dh_k), np.asarray(dh_ref),
                                rtol=2e-3, atol=2e-3)
+
+
+def test_scaled_kernel_matches_xla_tempered():
+    """The `scaled` variant (tempering's lp_scale) == the XLA leapfrog on
+    beta * log p."""
+    t = get_target("gaussian_mixture", dim=10)
+    n_chains, L, beta = 16, 6, 0.3
+    k1, k2, k3 = random.split(random.PRNGKey(12), 3)
+    q = random.normal(k1, (n_chains, 10), jnp.float32) * 2.0
+    p0 = random.normal(k2, (n_chains, 10), jnp.float32)
+    u = random.uniform(k3, (n_chains,), jnp.float32)
+    inv_mass = jnp.ones(10, jnp.float32)
+
+    def tempered_vag(x):
+        lp, g = t.value_and_grad_fn(x)
+        return (beta * lp.astype(jnp.float32), beta * g.astype(jnp.float32))
+
+    lp, grad = tempered_vag(q)
+    q_ref, accept_ref, _ = _xla_transition(
+        tempered_vag, q, lp, grad, p0, u, 0.2, L, inv_mass, None, 0.0, 1.0)
+    run = make_debug_trajectory(t.value_and_grad_fn, L, None, backend="interpret")
+    q_k, _, _, accept_k, _ = run(q, lp, grad, p0, u, 0.2, 0.0, 1.0,
+                                 inv_mass, lp_scale=beta)
+    np.testing.assert_array_equal(np.asarray(accept_k), np.asarray(accept_ref))
+    np.testing.assert_allclose(np.asarray(q_k), np.asarray(q_ref),
+                               rtol=2e-4, atol=2e-4)
 
 
 def test_bridge_beta_one_equals_plain_kernel():
@@ -195,8 +234,7 @@ def test_bridge_beta_one_equals_plain_kernel():
     trajectory to the bit."""
     t = get_target("standard_normal", dim=PALLAS_DIM)
     n_chains, L = 8, 5
-    key = random.PRNGKey(6)
-    k1, k2, k3 = random.split(key, 3)
+    k1, k2, k3 = random.split(random.PRNGKey(6), 3)
     q = random.normal(k1, (n_chains, PALLAS_DIM), dtype=jnp.float32)
     p0 = random.normal(k2, (n_chains, PALLAS_DIM), dtype=jnp.float32)
     u = random.uniform(k3, (n_chains,), dtype=jnp.float32)
@@ -204,8 +242,7 @@ def test_bridge_beta_one_equals_plain_kernel():
     lp, grad = t.value_and_grad_fn(q)
     lp = lp.astype(jnp.float32)
 
-    run = make_debug_trajectory(t.value_and_grad_fn, L, None,
-                                n_chains, PALLAS_DIM)
+    run = make_debug_trajectory(t.value_and_grad_fn, L, None, backend="interpret")
     plain = run(q, lp, grad, p0, u, 0.2, 0.0, 1.0, inv_mass)
     bridged = run(q, lp, grad, p0, u, 0.2, 0.0, 1.0, inv_mass,
                   bridge=(1.0, 0.0, 1.0))
@@ -214,22 +251,23 @@ def test_bridge_beta_one_equals_plain_kernel():
 
 
 def test_fused_step_statistical_correctness():
-    """Production kernel (on-chip RNG, interpret mode): correct posterior
-    moments and reasonable acceptance on N(0, I)."""
+    """Production step (jax.random momenta, interpret mode): correct
+    posterior moments and reasonable acceptance on N(0, I)."""
     t = get_target("standard_normal", dim=PALLAS_DIM)
     n_chains = 16
     state = grahmc_init(
         random.normal(random.PRNGKey(3), (n_chains, PALLAS_DIM)) * 0.5,
         t.log_prob_fn, t.value_and_grad_fn)
-    fused = make_fused_grahmc_step(t.log_prob_fn, t.value_and_grad_fn,
-                                   num_steps=8,
-                                   friction_schedule=get_friction_schedule("constant"))
+    fused = make_fused_grahmc_step(
+        t.log_prob_fn, t.value_and_grad_fn, num_steps=8,
+        friction_schedule=get_friction_schedule("constant"), backend="interpret")
     inv_mass = jnp.ones(PALLAS_DIM)
+    step = jax.jit(lambda k, s: fused(k, s, 0.22, 0.3, 1.0, inv_mass))
 
     key = random.PRNGKey(4)
     draws = []
     for i in range(400):
-        key, state, _ = fused(key, state, 0.22, 0.3, 1.0, inv_mass)
+        key, state, _ = step(key, state)
         if i >= 100:
             draws.append(np.asarray(state.position))
     draws = np.stack(draws)
@@ -246,9 +284,9 @@ def test_fused_step_counts_divergences():
     n_chains = 8
     state = grahmc_init(random.normal(random.PRNGKey(5), (n_chains, PALLAS_DIM)),
                         t.log_prob_fn, t.value_and_grad_fn)
-    fused = make_fused_grahmc_step(t.log_prob_fn, t.value_and_grad_fn,
-                                   num_steps=10,
-                                   friction_schedule=get_friction_schedule("constant"))
+    fused = make_fused_grahmc_step(
+        t.log_prob_fn, t.value_and_grad_fn, num_steps=10,
+        friction_schedule=get_friction_schedule("constant"), backend="interpret")
     key = random.PRNGKey(6)
     for _ in range(5):
         key, state, _ = fused(key, state, 8.0, 1.0, 1.0, jnp.ones(PALLAS_DIM))
@@ -256,8 +294,9 @@ def test_fused_step_counts_divergences():
     assert np.all(np.isfinite(np.asarray(state.position)))
 
 
-def test_grahmc_run_pallas_backend():
-    """backend='pallas' through the public run API."""
+def test_grahmc_run_interpret_backend():
+    """backend='interpret' (the kernel under the interpreter) through the
+    public run API."""
     from mcmc_tpu.samplers import grahmc_run
     t = get_target("standard_normal", dim=PALLAS_DIM)
     res = grahmc_run(
@@ -266,7 +305,7 @@ def test_grahmc_run_pallas_backend():
         step_size=0.2, num_steps=8, gamma=0.3, steepness=1.0,
         num_samples=150, burn_in=50,
         friction_schedule=get_friction_schedule("constant"),
-        value_and_grad_fn=t.value_and_grad_fn, backend="pallas")
+        value_and_grad_fn=t.value_and_grad_fn, backend="interpret")
     assert res.samples.shape == (150, 16, PALLAS_DIM)
     assert 0.2 < float(res.accept_rate.mean()) <= 1.0
     flat = np.asarray(res.samples).reshape(-1, PALLAS_DIM)
@@ -274,7 +313,7 @@ def test_grahmc_run_pallas_backend():
 
 
 def test_pallas_track_proposals_exports_true_endpoints():
-    """backend='pallas' track_proposals: proposals differ from post-MH samples
+    """Kernel track_proposals: proposals differ from post-MH samples
     exactly on rejected steps (true trajectory endpoints, XLA parity)."""
     from mcmc_tpu.samplers import grahmc_run
     t = get_target("standard_normal", dim=PALLAS_DIM)
@@ -284,7 +323,7 @@ def test_pallas_track_proposals_exports_true_endpoints():
         step_size=0.6, num_steps=8, gamma=0.5, steepness=1.0,
         num_samples=80, burn_in=0, track_proposals=True,
         friction_schedule=get_friction_schedule("constant"),
-        value_and_grad_fn=t.value_and_grad_fn, backend="pallas")
+        value_and_grad_fn=t.value_and_grad_fn, backend="interpret")
     prop = np.asarray(res.info["proposal_positions"])
     post = np.asarray(res.samples)
     pre = np.asarray(res.info["pre_positions"])
@@ -296,54 +335,19 @@ def test_pallas_track_proposals_exports_true_endpoints():
         assert not np.allclose(prop[rejected], post[rejected])
 
 
-def test_seed_words_deterministic_and_collision_free():
-    """Fused-kernel stream identity is the full 64-bit threefry key: seeds are
-    reproducible from (key, step) and distinct across 20k consecutive steps
-    (the old per-call 31-bit random.randint had ~2% birthday collision over a
-    12.5k-step run — VERDICT r1 weak #4)."""
-    from mcmc_tpu.ops.fused_trajectory import seed_words_from_key
-
-    # reproducibility: same key -> same words
-    k = random.PRNGKey(123)
-    w1 = np.asarray(seed_words_from_key(k))
-    w2 = np.asarray(seed_words_from_key(random.PRNGKey(123)))
-    assert w1.shape == (2,) and np.array_equal(w1, w2)
-
-    # simulate the per-step key chain of a long run: split per step as the
-    # fused step does, collect the seed words, assert all pairs unique
-    def chain(carry, _):
-        key, = carry
-        key, seed_key = random.split(key)
-        return (key,), seed_words_from_key(seed_key)
-
-    (_,), words = jax.lax.scan(chain, (random.PRNGKey(0),), length=20000)
-    words = np.asarray(words)
-    assert words.shape == (20000, 2)
-    uniq = np.unique(words, axis=0)
-    assert uniq.shape[0] == 20000
-
-    # typed new-style keys resolve to the same words as raw keys
-    kt = jax.random.wrap_key_data(jax.random.key_data(k))
-    assert np.array_equal(np.asarray(seed_words_from_key(kt)), w1)
-
-
-@pytest.mark.parametrize("dim_axis", [1, 0])
+@pytest.mark.parametrize("d_pad_extra", [0, 1])
 @pytest.mark.parametrize("name,dim", [("multimodal_funnel_2d", 2),
                                       ("concentric_l1_3d", 3),
                                       ("nested_l1_3d", 3)])
-def test_padded_vag_rahmc_paper_targets(name, dim, dim_axis):
-    """Padded specializations for the RAHMC-paper families (VERDICT r1
-    item 9): block math == analytic math, zero grads on padding."""
+def test_padded_vag_rahmc_paper_targets(name, dim, d_pad_extra):
+    """Padded specializations for the RAHMC-paper families: block math ==
+    analytic math, zero grads on padding, at the kernel's block width and
+    at twice it (the math must not depend on the padding width)."""
     t = get_target(name, dim=dim)
     x = t.init_sampler(random.PRNGKey(0), 16).astype(jnp.float32)
-    d_pad = 128 if dim_axis == 1 else 8
-    vag_pad = make_padded_vag(t.value_and_grad_fn, d_pad, dim_axis)
-    block = _pad(x, d_pad)
-    if dim_axis == 0:
-        block = block.T
-    lp_pad, grad_pad = vag_pad(block)
-    if dim_axis == 0:
-        lp_pad, grad_pad = lp_pad.T, grad_pad.T
+    d_pad = block_dim(dim) << d_pad_extra
+    lp_pad, grad_pad = make_padded_vag(t.value_and_grad_fn, d_pad)(
+        _pad(x, d_pad))
     lp_ref, grad_ref = t.value_and_grad_fn(x)
     np.testing.assert_allclose(np.asarray(lp_pad[:, 0]),
                                np.asarray(lp_ref, np.float32),
@@ -354,7 +358,7 @@ def test_padded_vag_rahmc_paper_targets(name, dim, dim_axis):
     assert np.all(np.asarray(grad_pad[:, dim:]) == 0.0)
 
 
-def test_grahmc_pallas_backend_rahmc_target():
+def test_grahmc_interpret_backend_rahmc_target():
     """The fused kernel runs end-to-end on a RAHMC-paper target (no silent
     XLA fallback)."""
     from mcmc_tpu.samplers import grahmc_run
@@ -365,278 +369,116 @@ def test_grahmc_pallas_backend_rahmc_target():
         step_size=0.1, num_steps=8, gamma=0.5, steepness=1.0,
         num_samples=60, burn_in=20,
         friction_schedule=get_friction_schedule("constant"),
-        value_and_grad_fn=t.value_and_grad_fn, backend="pallas")
+        value_and_grad_fn=t.value_and_grad_fn, backend="interpret")
     assert res.samples.shape == (60, 16, 2)
     assert np.all(np.isfinite(np.asarray(res.samples)))
 
 
-@pytest.mark.parametrize("dim_axis", [1, 0])
-def test_padded_vag_hierarchical_logistic(dim_axis):
-    """Data-carrying padded specialization (design matrix as VMEM operand):
-    block math == analytic math. Measured on TPU v5e at 8192 chains, S=250:
-    fused 15.7M chain-steps/s == XLA 15.7M (both MXU-bound at ~25.4
-    matmul-TFLOP/s); the kernel exists for multi-chip shard_map, not
-    single-chip speed."""
+def _target_for_family(family):
+    if family == "multimodal_funnel_2d":
+        return get_target("multimodal_funnel_2d", dim=2)
+    if family == "concentric_l1_balls":
+        return get_target("concentric_l1_3d", dim=3)
+    if family == "nested_l1_balls":
+        return get_target("nested_l1_3d", dim=3)
+    return get_target(family, dim=50)
+
+
+def _lower_for_gpu(t, dense=False, bridge=None, lp_scale=None):
+    """Lower one kernel variant for CUDA (Triton IR is emitted here; only
+    the PTX compile needs the card) and return the lowered module text."""
+    n_chains = 256
+    dim = t.dim
+    calls = ft._CallCache(ft._vag_cache(t.value_and_grad_fn), 16,
+                          get_friction_schedule("tanh"), False)
+    metric = (jnp.eye(dim, dtype=jnp.float32) if dense
+              else jnp.ones(dim, jnp.float32))
+    q = jnp.zeros((n_chains, dim), jnp.float32)
+    lp = jnp.zeros((n_chains,), jnp.float32)
+
+    def f(q, lp):
+        return ft._transition(calls, q, lp, q, q, lp + 0.5, 0.1, 0.5, 1.0,
+                              metric, lp_scale=lp_scale, bridge=bridge)
+
+    return jax.jit(f).trace(q, lp).lower(
+        lowering_platforms=("cuda",)).as_text()
+
+
+@pytest.mark.parametrize("family", KERNEL_FAMILIES)
+def test_kernel_lowers_through_triton_for_every_family(family):
+    """Every family the resolver sends to the kernel lowers through the
+    Triton route (no slicing or other primitive it refuses)."""
+    text = _lower_for_gpu(_target_for_family(family))
+    assert "fused_grahmc_transition" in text
+
+
+@pytest.mark.parametrize("variant", ["dense", "bridge", "scaled"])
+def test_kernel_variants_lower_through_triton(variant):
+    t = get_target("neals_funnel", dim=50)
+    kw = {"dense": dict(dense=True),
+          "bridge": dict(bridge=(0.5, 0.0, 2.0)),
+          "scaled": dict(lp_scale=0.3)}[variant]
+    assert "fused_grahmc_transition" in _lower_for_gpu(t, **kw)
+
+
+@pytest.mark.parametrize("name", ["rosenbrock", "hierarchical_logistic"])
+def test_resolver_sends_unlowerable_families_to_xla(name):
+    """Families without kernel math resolve to 'xla' even on a GPU, and an
+    explicit kernel request for them fails loudly."""
     from mcmc_tpu.targets.hierarchical import hierarchical_logistic
-    t = hierarchical_logistic(dim=20, n_data=64)
-    x = t.init_sampler(random.PRNGKey(0), 8).astype(jnp.float32)
-    d_pad = 128 if dim_axis == 1 else 24
-    vag = make_padded_vag(t.value_and_grad_fn, d_pad, dim_axis)
-    block = _pad(x, d_pad)
-    if dim_axis == 0:
-        block = block.T
-    lp, g = vag(block, *[jnp.asarray(a) for a in vag.data_arrays])
-    if dim_axis == 0:
-        lp, g = lp.T, g.T
-    lp_ref, g_ref = t.value_and_grad_fn(x)
-    np.testing.assert_allclose(np.asarray(lp[:, 0]),
-                               np.asarray(lp_ref, np.float32),
-                               rtol=3e-5, atol=3e-5)
-    np.testing.assert_allclose(np.asarray(g[:, :20]),
-                               np.asarray(g_ref, np.float32),
-                               rtol=3e-4, atol=3e-4)
-    assert np.all(np.asarray(g[:, 20:]) == 0.0)
+    t = (hierarchical_logistic(dim=10, n_data=32)
+         if name == "hierarchical_logistic" else get_target(name, dim=10))
+    assert resolve_backend("auto", t.value_and_grad_fn, platform="gpu") \
+        == "xla"
+    with pytest.raises(KeyError):
+        make_padded_vag(t.value_and_grad_fn, 16)
 
 
-def test_grahmc_pallas_backend_hierarchical():
-    """Fused kernel end-to-end on the data-carrying target; posterior agrees
-    with the XLA path."""
-    from mcmc_tpu.targets.hierarchical import hierarchical_logistic
+@pytest.mark.parametrize("platform,expect", [("gpu", "pallas"),
+                                             ("cpu", "xla"),
+                                             ("rocm", "xla")])
+def test_resolver_per_platform(platform, expect):
+    """'auto' picks the kernel only on a GPU; explicit choices pass
+    through on every platform; unknown names fail."""
+    t = get_target("neals_funnel", dim=10)
+    vag = t.value_and_grad_fn
+    assert resolve_backend("auto", vag, platform=platform) == expect
+    for explicit in ("xla", "pallas", "interpret"):
+        assert resolve_backend(explicit, vag, platform=platform) == explicit
+    assert resolve_backend("auto", lambda x: x, platform=platform) == "xla"
+    with pytest.raises(ValueError, match="unknown backend"):
+        resolve_backend("triton", vag, platform=platform)
+
+
+def test_compiled_kernel_refused_off_gpu():
+    """Asking for the compiled kernel where there is no GPU raises instead
+    of falling back to the interpreter."""
+    t = get_target("standard_normal", dim=4)
+    with pytest.raises(RuntimeError, match="interpret"):
+        make_fused_grahmc_step(t.log_prob_fn, t.value_and_grad_fn,
+                               num_steps=4, friction_schedule=None)
+    with pytest.raises(RuntimeError, match="interpret"):
+        make_debug_trajectory(t.value_and_grad_fn, 4, None)
+
+
+def test_kernel_path_handles_odd_chain_counts():
+    """Chain counts that leave the last block partly empty (2 x prime) must
+    sample every chain (masked rows, not a skipped tile)."""
     from mcmc_tpu.samplers import grahmc_run
-    t = hierarchical_logistic(dim=20, n_data=64)
-    pos = t.init_sampler(random.PRNGKey(0), 16).astype(jnp.float32)
-    outs = {}
-    for backend in ("pallas", "xla"):
-        res = grahmc_run(
-            random.PRNGKey(1), t.log_prob_fn, pos, step_size=0.05,
-            num_steps=8, gamma=0.5, steepness=1.0, num_samples=120,
-            burn_in=40, friction_schedule=get_friction_schedule("constant"),
-            value_and_grad_fn=t.value_and_grad_fn, backend=backend)
-        flat = np.asarray(res.samples).reshape(-1, 20)
-        assert np.all(np.isfinite(flat))
-        outs[backend] = (float(res.accept_rate.mean()), flat.mean(0))
-    assert abs(outs["pallas"][0] - outs["xla"][0]) < 0.2
-    np.testing.assert_allclose(outs["pallas"][1], outs["xla"][1], atol=0.6)
-
-
-def test_multistep_kernel_matches_chained_single_steps():
-    """T transitions in one kernel call == T chained single-transition calls
-    on identical randoms (same transposed layout -> identical arithmetic)."""
-    from mcmc_tpu.ops.fused_trajectory import (
-        make_fused_grahmc_multistep, make_debug_trajectory, _round_up,
-        SUBLANE)
-    from mcmc_tpu.samplers.base import init_chain_state
-    from mcmc_tpu.samplers.grahmc import tanh_schedule
-    from mcmc_tpu.targets import neals_funnel
-
-    dim, C, T, L = 10, 16, 4, 6
-    t = neals_funnel(dim)
-    key = random.PRNGKey(7)
-    init = (random.normal(random.PRNGKey(8), (C, dim)) * 0.4).astype(
-        jnp.float32)
-    state = init_chain_state(init, t.log_prob_fn, t.value_and_grad_fn)
-    state = state._replace(position=state.position.astype(jnp.float32),
-                           log_prob=state.log_prob.astype(jnp.float32),
-                           grad_log_prob=state.grad_log_prob.astype(
-                               jnp.float32))
-    inv_mass = jnp.full((dim,), 1.7, jnp.float32)
-    eps, gamma, steep = 0.15, 1.0, 0.5
-
-    multi = make_fused_grahmc_multistep(
-        t.log_prob_fn, t.value_and_grad_fn, L, tanh_schedule, T,
-        interpret=True)
-    _, ms, (acc_m, hist_q, hist_lp, dh_m) = multi(
-        key, state, eps, gamma, steep, inv_mass)
-
-    # reproduce the wrapper's draws
-    d_pad = _round_up(dim, SUBLANE)
-    _, seed_key = random.split(key)
-    k_mom, k_u = random.split(seed_key)
-    invm_col = jnp.pad(inv_mass, (0, d_pad - dim),
-                       constant_values=1.0)[:, None]
-    p0_all = (random.normal(k_mom, (T, d_pad, C), jnp.float32)
-              / jnp.sqrt(invm_col))
-    u_all = random.uniform(k_u, (T, C), jnp.float32)
-
-    debug = make_debug_trajectory(t.value_and_grad_fn, L, tanh_schedule,
-                                  C, dim, interpret=True,
-                                  layout="transposed")
-    q, lp, g = state.position, state.log_prob, state.grad_log_prob
-    for k in range(T):
-        q1, lp1, g1, acc, dh = debug(q, lp, g, p0_all[k, :dim].T, u_all[k],
-                                     eps, gamma, steep, inv_mass)
-        q = jnp.where(acc[:, None], q1, q)
-        lp = jnp.where(acc, lp1, lp)
-        g = jnp.where(acc[:, None], g1, g)
-        np.testing.assert_array_equal(np.asarray(acc_m[k]), np.asarray(acc))
-        np.testing.assert_allclose(np.asarray(dh_m[k]), np.asarray(dh),
-                                   rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(hist_q[k]), np.asarray(q),
-                                   rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(hist_lp[k]), np.asarray(lp),
-                                   rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ms.position), np.asarray(q),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(
-        np.asarray(ms.accept_count),
-        np.asarray(jnp.sum(acc_m.astype(jnp.int32), axis=0)))
-
-
-def test_grahmc_run_multistep_path_moments():
-    """The auto-selected multi-transition path produces correct posteriors
-    and exact per-step history shapes through the public run API."""
-    from mcmc_tpu.samplers import grahmc_run
-    from mcmc_tpu.samplers.grahmc import constant_schedule
-    from mcmc_tpu.targets import standard_normal
-    t = standard_normal(6)
-    init = (random.normal(random.PRNGKey(1), (64, 6)) * 0.2).astype(
-        jnp.float32)
-    res = grahmc_run(
-        random.PRNGKey(0), t.log_prob_fn, init, step_size=0.12, num_steps=8,
-        gamma=0.5, steepness=1.0, num_samples=320, burn_in=64,
-        friction_schedule=constant_schedule,
-        value_and_grad_fn=t.value_and_grad_fn, backend="pallas",
-        collect_chains=16)
-    assert res.samples.shape == (320, 16, 6)
-    assert res.log_probs.shape == (320, 16)
-    flat = np.asarray(res.samples).reshape(-1, 6)
-    assert np.all(np.abs(flat.mean(0)) < 0.2)
-    assert np.all(np.abs(flat.var(0) - 1.0) < 0.25)
-    acc = float(np.asarray(res.accept_rate).mean())
-    assert 0.6 < acc <= 1.0
-
-
-def test_fused_rwmh_matches_injected_random_reference():
-    """The fused RWMH kernel (interpret mode, injected randoms) is bit-exact
-    against the same arithmetic replayed in plain jnp on the padded layout."""
-    from mcmc_tpu.ops.fused_rwmh import make_fused_rwmh_multistep
-    from mcmc_tpu.ops.fused_trajectory import _round_up, SUBLANE
-    from mcmc_tpu.ops.padded_targets import _mask_row
-    from mcmc_tpu.samplers.base import init_chain_state
-    from mcmc_tpu.targets import neals_funnel
-
-    dim, C, T = 10, 16, 4
-    t = neals_funnel(dim)
-    key = random.PRNGKey(5)
-    init = (random.normal(random.PRNGKey(6), (C, dim)) * 0.4).astype(
-        jnp.float32)
-    state = init_chain_state(init, t.log_prob_fn, needs_grad=False)
-    state = state._replace(position=state.position.astype(jnp.float32),
-                           log_prob=state.log_prob.astype(jnp.float32))
-    scale = 0.3
-
-    multi = make_fused_rwmh_multistep(t.log_prob_fn, t.value_and_grad_fn, T,
-                                      interpret=True)
-    _, ms, (acc_m, hist_q, hist_lp) = multi(key, state, scale)
-
-    # replay the wrapper's draws and arithmetic on the padded layout
-    d_pad = _round_up(dim, SUBLANE)
-    _, seed_key = random.split(key)
-    k_noise, k_u = random.split(seed_key)
-    noise = random.normal(k_noise, (T, d_pad, C), jnp.float32)
-    u = random.uniform(k_u, (T, C), jnp.float32)
-    vag = make_padded_vag(t.value_and_grad_fn, d_pad, dim_axis=0)
-    mask = _mask_row(dim, d_pad, dim_axis=0)
-
-    q = jnp.pad(state.position, ((0, 0), (0, d_pad - dim))).T
-    lp = state.log_prob[None, :]
-    for k in range(T):
-        prop = q + scale * noise[k] * mask
-        lp1, _ = vag(prop)
-        acc = jnp.log(u[k]) < jnp.minimum(0.0, lp1 - lp)
-        q = jnp.where(acc, prop, q)
-        lp = jnp.where(acc, lp1, lp)
-        np.testing.assert_array_equal(np.asarray(acc_m[k]),
-                                      np.asarray(acc[0]))
-        np.testing.assert_array_equal(np.asarray(hist_q[k]),
-                                      np.asarray(q.T[:, :dim]))
-        # lp goes through exp/log reductions that XLA fuses differently in
-        # the interpret-mode kernel vs the plain-jnp replay: allclose, not ==
-        np.testing.assert_allclose(np.asarray(hist_lp[k]),
-                                   np.asarray(lp[0]), rtol=2e-6, atol=2e-6)
-    np.testing.assert_array_equal(np.asarray(ms.position),
-                                  np.asarray(q.T[:, :dim]))
-    np.testing.assert_array_equal(
-        np.asarray(ms.accept_count),
-        np.asarray(jnp.sum(acc_m.astype(jnp.int32), axis=0)))
-
-
-def test_rwmh_run_pallas_backend_moments():
-    """rwmh_run(backend='pallas') samples the correct posterior through the
-    public API and matches the XLA backend's acceptance statistics."""
-    from mcmc_tpu.samplers import rwmh_run
-    from mcmc_tpu.targets import standard_normal
-    t = standard_normal(4)
-    init = (random.normal(random.PRNGKey(1), (64, 4)) * 0.2).astype(
-        jnp.float32)
-    outs = {}
-    for backend in ("pallas", "xla"):
-        res = rwmh_run(random.PRNGKey(0), t.log_prob_fn, init,
-                       num_samples=480, scale=1.1, burn_in=64,
-                       collect_chains=32, backend=backend,
-                       value_and_grad_fn=t.value_and_grad_fn)
-        assert res.samples.shape == (480, 32, 4)
-        assert res.log_probs.shape == (480, 32)
-        flat = np.asarray(res.samples).reshape(-1, 4)
-        outs[backend] = (float(np.asarray(res.accept_rate).mean()),
-                         flat.mean(0), flat.var(0))
-    for backend, (acc, mean, var) in outs.items():
-        assert 0.2 < acc < 0.5, (backend, acc)   # 2.38/sqrt(d) regime
-        assert np.all(np.abs(mean) < 0.2), (backend, mean)
-        assert np.all(np.abs(var - 1.0) < 0.3), (backend, var)
-    assert abs(outs["pallas"][0] - outs["xla"][0]) < 0.1
-
-
-def test_select_chain_tile_always_divides_and_fits():
-    """The multi-transition chain tile must divide n_chains exactly (a grid
-    that skips chains silently corrupts results — review finding r2) and
-    keep the (T, d_pad, tile) history window under ~2 MiB."""
-    from mcmc_tpu.ops.fused_trajectory import select_chain_tile
-    cases = [
-        # (n_chains, d_pad, T) — incl. the reported failure case: 274 chains,
-        # d_pad 120, T=32 shrinks through odd 137 where naive halving lands
-        # on 68, which does not divide 274
-        (274, 120, 32), (65536, 56, 8), (4096, 16, 32), (202, 104, 32),
-        (96, 40, 32), (3, 8, 8), (1, 128, 32), (100, 8, 1), (137, 120, 32),
-    ]
-    for n_chains, d_pad, T in cases:
-        for has_data in (False, True):
-            tile = select_chain_tile(n_chains, d_pad, T, has_data=has_data)
-            assert tile >= 1, (n_chains, d_pad, T)
-            assert n_chains % tile == 0, (n_chains, d_pad, T, tile)
-            assert (tile == 1
-                    or T * d_pad * tile * 4 <= (2 << 20)), \
-                (n_chains, d_pad, T, tile)
-    # explicit chain_tile requests are still subject to both constraints
-    assert select_chain_tile(274, 120, 32, chain_tile=274) in (2, 137)
-    assert 4096 % select_chain_tile(4096, 120, 32, chain_tile=512) == 0
-
-
-def test_multistep_paths_handle_odd_chain_counts():
-    """Chain counts with awkward factorizations (2 x prime) must sample every
-    chain through both multi-transition public paths (tile-selection
-    regression: a non-dividing tile silently froze the last chains)."""
-    from mcmc_tpu.samplers import grahmc_run, rwmh_run
     from mcmc_tpu.samplers.grahmc import constant_schedule
     from mcmc_tpu.targets import standard_normal
 
     t = standard_normal(6)
     C = 274                       # 2 x 137
     init = jnp.full((C, 6), 5.0, jnp.float32)   # far from the mode: any
-    # chain left frozen by a skipped grid tile stays at exactly 5.0
+    # chain left frozen by a skipped block stays at exactly 5.0
     res = grahmc_run(
         random.PRNGKey(0), t.log_prob_fn, init, step_size=0.3, num_steps=4,
         gamma=0.5, steepness=1.0, num_samples=64, burn_in=0,
         friction_schedule=constant_schedule,
-        value_and_grad_fn=t.value_and_grad_fn, backend="pallas")
+        value_and_grad_fn=t.value_and_grad_fn, backend="interpret")
     moved = np.any(np.asarray(res.final_state.position) != 5.0, axis=1)
-    assert moved.all(), f"{(~moved).sum()} chains never updated (grahmc)"
-
-    res2 = rwmh_run(
-        random.PRNGKey(1), t.log_prob_fn, init, num_samples=64, scale=0.9,
-        burn_in=0, value_and_grad_fn=t.value_and_grad_fn, backend="pallas")
-    moved2 = np.any(np.asarray(res2.final_state.position) != 5.0, axis=1)
-    assert moved2.all(), f"{(~moved2).sum()} chains never updated (rwmh)"
+    assert moved.all(), f"{(~moved).sum()} chains never updated"
 
 
 def test_kernel_factory_memoized_per_target_lifetime():
@@ -646,30 +488,75 @@ def test_kernel_factory_memoized_per_target_lifetime():
     same target instance return the identical compiled-kernel closure (no
     re-trace per window), distinct instances never share (their closures
     differ), and dropping the target releases the cache — a module-level
-    lru_cache would pin dead targets' datasets and executables until 32
-    newer entries evicted them.
+    lru_cache would pin dead targets' executables until 32 newer entries
+    evicted them.
     """
     import gc
     import weakref
 
-    from mcmc_tpu.targets import get_target
-
     t1 = get_target("standard_normal", dim=4)
     f1 = make_fused_grahmc_step(t1.log_prob_fn, t1.value_and_grad_fn,
                                 num_steps=4, friction_schedule=None,
-                                interpret=True)
+                                backend="interpret")
     f2 = make_fused_grahmc_step(t1.log_prob_fn, t1.value_and_grad_fn,
                                 num_steps=4, friction_schedule=None,
-                                interpret=True)
+                                backend="interpret")
     assert f1 is f2
 
     t2 = get_target("standard_normal", dim=4)
     f3 = make_fused_grahmc_step(t2.log_prob_fn, t2.value_and_grad_fn,
                                 num_steps=4, friction_schedule=None,
-                                interpret=True)
+                                backend="interpret")
     assert f3 is not f1
 
     ref = weakref.ref(f1)
     del f1, f2, t1
     gc.collect()
     assert ref() is None, "kernel cache outlived its target"
+
+
+# ---- compiled kernel on the card (skip elsewhere) --------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+def test_compiled_kernel_matches_interpreter(gpu, metric):
+    """The Triton-compiled kernel and the same kernel under the interpreter
+    agree on the same inputs (float32 reassociation only)."""
+    t = get_target("neals_funnel", dim=50)
+    n_chains, L = 4096, 16
+    k1, k2, k3 = random.split(random.PRNGKey(21), 3)
+    q = (random.normal(k1, (n_chains, 50)) * 0.5).astype(jnp.float32)
+    p0 = random.normal(k2, (n_chains, 50), jnp.float32)
+    u = random.uniform(k3, (n_chains,), jnp.float32)
+    lp, grad = t.value_and_grad_fn(q)
+    lp, grad = lp.astype(jnp.float32), grad.astype(jnp.float32)
+    inv_mass = (jnp.ones(50, jnp.float32) if metric == "diag"
+                else _dense_metric(50))
+    sched = get_friction_schedule("tanh")
+    args = (q, lp, grad, p0, u, 0.05, 0.3, 0.5, inv_mass)
+    compiled = make_debug_trajectory(t.value_and_grad_fn, L, sched)(*args)
+    interp = make_debug_trajectory(t.value_and_grad_fn, L, sched,
+                                   backend="interpret")(*args)
+    assert np.mean(np.asarray(compiled[3]) == np.asarray(interp[3])) > 0.999
+    np.testing.assert_allclose(np.asarray(compiled[0]), np.asarray(interp[0]),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_auto_backend_runs_compiled_kernel(gpu):
+    """On the GPU backend='auto' resolves to the compiled kernel, which
+    samples N(0, I) with the right moments through grahmc_run."""
+    from mcmc_tpu.samplers import grahmc_run
+    t = get_target("standard_normal", dim=PALLAS_DIM)
+    assert resolve_backend("auto", t.value_and_grad_fn) == "pallas"
+    res = grahmc_run(
+        random.PRNGKey(7), t.log_prob_fn,
+        random.normal(random.PRNGKey(8), (1024, PALLAS_DIM), jnp.float32),
+        step_size=0.2, num_steps=8, gamma=0.1, steepness=1.0,
+        num_samples=200, burn_in=50,
+        friction_schedule=get_friction_schedule("constant"),
+        value_and_grad_fn=t.value_and_grad_fn)
+    flat = np.asarray(res.samples, np.float64).reshape(-1, PALLAS_DIM)
+    assert 0.5 < float(res.accept_rate.mean()) <= 1.0
+    assert np.all(np.abs(flat.mean(0)) < 0.05)
+    assert np.all(np.abs(flat.var(0) - 1.0) < 0.05)

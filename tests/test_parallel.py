@@ -147,7 +147,7 @@ def test_fused_kernel_sharded_over_mesh():
     res = grahmc_run_sharded(
         random.PRNGKey(31), t, init, mesh, step_size=0.25, num_steps=6,
         gamma=0.3, steepness=1.0, num_samples=300, burn_in=100,
-        collect_chains_per_device=4)
+        collect_chains_per_device=4, backend="interpret")
     # history: 4 chains per device x 8 devices
     assert res.samples.shape == (300, 32, 6)
     assert res.accept_rate.shape == (64,)
@@ -253,10 +253,9 @@ def test_persistent_nuts_sharded_over_mesh():
 
 
 def test_fused_persistent_nuts_sharded_over_mesh():
-    """The fused persistent-NUTS window kernel runs under shard_map over the
-    8-device mesh (GSPMD cannot partition pallas_call; the GSPMD
-    alternative is the XLA machine, which compiles ~150x slower on TPU).
-    Statistical sanity + info schema on N(0, I)."""
+    """The persistent-NUTS XLA machine runs shard_mapped over the 8-device
+    mesh (one machine per device on its chain shard). Statistical sanity +
+    info schema on N(0, I)."""
     from mcmc_tpu.parallel import make_mesh
     from mcmc_tpu.parallel.fused_sharded import nuts_persistent_run_sharded
     from mcmc_tpu.targets import standard_normal
@@ -289,7 +288,7 @@ def test_fused_persistent_nuts_sharded_over_mesh():
 def test_fused_persistent_nuts_multinomial_sharded_over_mesh():
     """The Stan multinomial proposal scheme runs through the same fused
     shard_map path (reservoir + checkpoint stacks live per-device in
-    VMEM); the CLI's mesh dispatch forwards --nuts-proposal here."""
+    machine state); the CLI's mesh dispatch forwards --nuts-proposal here."""
     from mcmc_tpu.parallel import make_mesh
     from mcmc_tpu.parallel.fused_sharded import nuts_persistent_run_sharded
     from mcmc_tpu.targets import standard_normal
@@ -344,7 +343,7 @@ def test_warmup_mesh_dispatches_fused_sharded(monkeypatch):
     step, inv_mass, pos, info = run_adaptive_warmup(
         "grahmc", t.log_prob_fn, None, init, random.PRNGKey(31),
         num_warmup=425, schedule_type="constant", num_steps=5,
-        value_and_grad_fn=t.value_and_grad_fn, backend="pallas", mesh=mesh,
+        value_and_grad_fn=t.value_and_grad_fn, backend="interpret", mesh=mesh,
         **short)
 
     assert calls["sharded"] == 1, "mesh warmup must use the shard_map runner"
@@ -365,19 +364,23 @@ def test_warmup_mesh_dispatches_fused_sharded(monkeypatch):
 
 
 def test_warmup_mesh_fused_nuts_windows(monkeypatch):
-    """Persistent-NUTS warmup under a mesh builds its fused VMEM window
-    kernel at the DEVICE-LOCAL chain width and runs it shard_mapped."""
-    import mcmc_tpu.ops.fused_nuts as fn
+    """Persistent-NUTS warmup under a mesh traces its window step at the
+    DEVICE-LOCAL chain width, i.e. runs the machine shard_mapped."""
+    import mcmc_tpu.samplers.nuts_persistent as npz
     from mcmc_tpu.tuning import run_adaptive_warmup
 
     widths = []
-    orig = fn.make_fused_nuts_window
+    orig = npz._make_window_step
 
-    def spy(vag, n_iters, max_depth, n_chains, dim, **k):
-        widths.append(n_chains)
-        return orig(vag, n_iters, max_depth, n_chains, dim, **k)
+    def spy(*a, **k):
+        step = orig(*a, **k)
 
-    monkeypatch.setattr(fn, "make_fused_nuts_window", spy)
+        def traced(ps, xs):
+            widths.append(ps.q.shape[0])
+            return step(ps, xs)
+        return traced
+
+    monkeypatch.setattr(npz, "_make_window_step", spy)
 
     t = standard_normal(4)
     mesh = make_mesh()
@@ -386,11 +389,11 @@ def test_warmup_mesh_fused_nuts_windows(monkeypatch):
     step, inv_mass, pos, info = run_adaptive_warmup(
         "nuts", t.log_prob_fn, None, init, random.PRNGKey(33),
         num_warmup=175, value_and_grad_fn=t.value_and_grad_fn,
-        backend="persistent", mesh=mesh, fused_warmup=True,
+        backend="persistent", mesh=mesh,
         steps_per_warmup_step=8, exploration_steps=50,
         adaptation_windows=[100], cooldown_steps=25)
 
-    assert 32 // 8 in widths, f"kernel widths built: {widths}"
+    assert widths and set(widths) == {32 // 8}, f"traced widths: {widths}"
     assert step > 0 and np.isfinite(step)
     assert pos.shape == (32, 4)
     assert np.all(np.isfinite(np.asarray(inv_mass)))
@@ -412,7 +415,7 @@ def test_sequential_tuner_sharded_fused_matches_unsharded():
 
     step_s, gamma_s, steep_s, hist_s = sequential_tune_grahmc(
         random.PRNGKey(41), t.log_prob_fn, None, shard_chains(pos, mesh),
-        backend="pallas", mesh=mesh, **kw)
+        backend="interpret", mesh=mesh, **kw)
     step_u, gamma_u, _, _ = sequential_tune_grahmc(
         random.PRNGKey(41), t.log_prob_fn, None, pos, backend="xla", **kw)
 
@@ -423,3 +426,68 @@ def test_sequential_tuner_sharded_fused_matches_unsharded():
     assert gamma_s == gamma_u
     assert abs(np.log(step_s / step_u)) < 1.0
     assert len(hist_s["per_gamma_step"]) == 2
+
+
+@pytest.mark.parametrize("group", ["shard_map", "gspmd", "diagnostics",
+                                   "smc"])
+def test_mesh_parity_checks(group):
+    """The multi-device parity checks chip_smoke.py --multi runs on four
+    GPUs (mcmc_tpu/parallel/parity.py), here on the 8-device CPU mesh with
+    the kernel under the interpreter: every mesh path reproduces its
+    one-device run."""
+    from mcmc_tpu.parallel import parity
+    from mcmc_tpu.targets import neals_funnel
+
+    mesh = make_mesh()
+    target = neals_funnel(6)
+    init = target.init_sampler(random.PRNGKey(0), 32).astype(jnp.float32)
+    if group == "shard_map":
+        records = parity.shard_map_parity(mesh, target,
+                                          shard_chains(init, mesh),
+                                          backend="interpret")
+        assert {r["check"] for r in records} >= {
+            "shard_map/grahmc-kernel", "shard_map/persistent-nuts",
+            "shard_map/persistent-nuts-multinomial",
+            "shard_map/persistent-nuts-dense", "shard_map/tempering"}
+        # same local shapes + same folded key: bitwise on one backend
+        assert all(r["bitwise"] for r in records), records
+    elif group == "gspmd":
+        records = parity.gspmd_parity(mesh, target, init)
+    elif group == "diagnostics":
+        records = parity.diagnostics_parity(mesh, 32, 6)
+    else:
+        from mcmc_tpu.targets import standard_normal
+        # 3x the largest log-Z gap over 20 seeds at 8 devices, 6D, 512
+        # particles (0.222)
+        records = parity.smc_parity(mesh, standard_normal(6), 512,
+                                    move_backend="interpret", bound=0.67)
+        assert records[0]["same_ladder"]
+    assert records and all(r["ok"] for r in records), records
+
+
+def test_sharded_nuts_counters_follow_global_slot_total():
+    """The sharded persistent-NUTS totals take their dtype from the GLOBAL
+    slot total: 1024 chains x 10k snapshots x 512 steps is 5.24e9 slots
+    (past uint32) although each of the 8 shards holds only 6.6e8, so the
+    psum'd counters must be float32, not a wrapping uint32. Trace-only
+    (eval_shape) with x64 off, as on the accelerator."""
+    from mcmc_tpu.parallel.fused_sharded import nuts_persistent_run_sharded
+
+    t = standard_normal(4)
+    mesh = make_mesh()
+
+    def shapes(num_samples, steps_per_sample):
+        return jax.eval_shape(
+            lambda key, pos: nuts_persistent_run_sharded(
+                key, t, pos, mesh, step_size=0.5, num_samples=num_samples,
+                steps_per_sample=steps_per_sample,
+                collect_chains_per_device=1),
+            jax.ShapeDtypeStruct((2,), jnp.uint32),
+            jax.ShapeDtypeStruct((1024, 4), jnp.float32))
+
+    with jax.enable_x64(False):
+        small = shapes(8, 16)
+        big = shapes(10000, 512)
+    assert small.info["n_leapfrog_slots"].dtype == jnp.uint32
+    assert big.info["n_leapfrog_slots"].dtype == jnp.float32
+    assert big.info["n_leapfrogs"].dtype == jnp.float32

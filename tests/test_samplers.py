@@ -289,3 +289,63 @@ def test_nuts_funnel_with_mass_matrix():
                    value_and_grad_fn=t.value_and_grad_fn)
     assert np.all(np.isfinite(np.asarray(res.samples)))
     assert float(res.info["divergence_rate"]) < 0.2
+
+
+@pytest.mark.parametrize("backend", ["xla", "interpret"])
+def test_nonfinite_proposals_rejected_from_high_energy_states(backend):
+    """A chain far out in the tails (energy above the 1e10 guard value)
+    must still reject a proposal whose Hamiltonian overflows: otherwise
+    the guard value alone is 'downhill' and a NaN/inf state is accepted,
+    which is absorbing."""
+    from mcmc_tpu.samplers import hmc_run
+    t = standard_normal(4)
+    init = jnp.full((16, 4), 1e12, jnp.float32)      # h0 ~ 2e24 > 1e10
+    res = hmc_run(random.PRNGKey(0), t.log_prob_fn, init, step_size=1e30,
+                  num_steps=4, num_samples=3,
+                  value_and_grad_fn=t.value_and_grad_fn, backend=backend)
+    assert np.all(np.isfinite(np.asarray(res.final_state.position)))
+    assert np.all(np.asarray(res.final_state.position) == 1e12)
+    assert float(res.accept_rate.max()) == 0.0
+
+
+# Seeds whose accept draw over 1,024 chains holds an exact float32 zero:
+# PRNGKey(11195) through grahmc_step's key split, PRNGKey(703) through the
+# fused kernel step's (found by search; the test asserts it).
+@pytest.mark.parametrize("backend,seed", [("xla", 11195), ("interpret", 703)])
+def test_zero_uniform_draw_cannot_accept_a_runaway_proposal(backend, seed):
+    """random.uniform returns exactly 0 with probability 2^-23 per float32
+    draw, and log(0) = -inf accepts any finite proposal. A float32 HMC
+    warmup on the 10D correlated Gaussian (L=16, ~10^7 accept draws) sent
+    one chain to |q| ~ 1e15 that way and learned a 1e21 mass matrix. With
+    the draw floored above 0 (precision.accept_uniform), an unstable step
+    (eps * omega = 3 > 2: |q| grows ~1e13 over 16 steps, H stays finite)
+    is rejected on every chain."""
+    from mcmc_tpu.ops.fused_trajectory import make_fused_grahmc_step
+    from mcmc_tpu.samplers.base import ChainState
+    from mcmc_tpu.samplers.grahmc import grahmc_step
+
+    n, d, num_steps, eps = 1024, 4, 16, 3.0
+    t = standard_normal(d)
+    if backend == "xla":
+        k_acc = random.split(random.PRNGKey(seed), 3)[2]
+    else:
+        k_acc = random.split(random.split(random.PRNGKey(seed))[1])[1]
+    assert float(random.uniform(k_acc, (n,), jnp.float32).min()) == 0.0
+
+    q = random.normal(random.PRNGKey(1), (n, d), jnp.float32)
+    lp, grad = t.value_and_grad_fn(q)
+    state = ChainState(q, lp.astype(jnp.float32), grad.astype(jnp.float32),
+                       jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32))
+    inv_mass = jnp.ones(d, jnp.float32)
+    if backend == "xla":
+        _, new, (accept, prop_q, _, _) = grahmc_step(
+            random.PRNGKey(seed), state, t.value_and_grad_fn, eps,
+            num_steps, 0.0, 1.0, inv_mass, None)
+    else:
+        fused = make_fused_grahmc_step(t.log_prob_fn, t.value_and_grad_fn,
+                                       num_steps, None, backend="interpret")
+        _, new, (accept, prop_q, _, _) = fused(
+            random.PRNGKey(seed), state, eps, 0.0, 1.0, inv_mass)
+    assert float(jnp.abs(prop_q).max()) > 1e6       # the proposals ran away
+    assert not bool(jnp.any(accept))
+    np.testing.assert_array_equal(np.asarray(new.position), np.asarray(q))

@@ -28,7 +28,7 @@ def test_ess_bulk_chunked_matches_monolithic():
     # (7,3): ragged tails on both axes; (24,5): single chunk == the
     # monolithic graph shape. Even chunking (8,2) and the exhaustive (1,1)
     # add no new code path beyond the ragged case (dropped: each config
-    # compiles its own block shapes, ~10s on the 1-vCPU test host).
+    # compiles its own block shapes, ~10s each on one CPU core).
     for chain_chunk, dim_chunk in ((24, 5), (7, 3)):
         chunked = np.asarray(ess_bulk_chunked(h, chain_chunk=chain_chunk,
                                               dim_chunk=dim_chunk))

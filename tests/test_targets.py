@@ -184,7 +184,7 @@ def test_unconstrain_real_support_is_identity():
 
 def test_unconstrained_padded_builder_matches_xla():
     """The Pallas family 'log_gamma_unconstrained' (ops/padded_targets.py)
-    must agree with the target's own value-and-grad in both block layouts,
+    must agree with the target's own value-and-grad at two block widths,
     with padded entries contributing nothing."""
     from mcmc_tpu.ops.padded_targets import make_padded_vag
 
@@ -192,16 +192,12 @@ def test_unconstrained_padded_builder_matches_xla():
     y = random.normal(random.PRNGKey(6), (8, 7)).astype(jnp.float32)
     lp_ref, g_ref = unc.value_and_grad_fn(y)
 
-    for ax, d_pad in ((1, 128), (0, 8)):
-        pv = make_padded_vag(unc.value_and_grad_fn, d_pad, ax)
-        if ax == 1:
-            q = jnp.zeros((8, d_pad), jnp.float32).at[:, :7].set(y)
-            lp, g = pv(q)
-            g = g[:, :7]
-        else:
-            q = jnp.zeros((d_pad, 8), jnp.float32).at[:7, :].set(y.T)
-            lp, g = pv(q)
-            g = g[:7, :].T
+    for d_pad in (16, 128):
+        pv = make_padded_vag(unc.value_and_grad_fn, d_pad)
+        q = jnp.zeros((8, d_pad), jnp.float32).at[:, :7].set(y)
+        lp, g = pv(q)
+        assert np.all(np.asarray(g[:, 7:]) == 0.0)
+        g = g[:, :7]
         np.testing.assert_allclose(np.asarray(lp).reshape(-1),
                                    np.asarray(lp_ref), rtol=2e-5, atol=2e-4)
         np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref),
